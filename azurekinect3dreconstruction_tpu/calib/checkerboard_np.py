@@ -28,7 +28,7 @@ Method:
   shared views, LM-refined jointly with the per-view board poses.
 
 Pure host/offline code by design (SURVEY.md §2.2: calibration is a
-once-per-rig task; nothing here belongs on the TPU).
+once-per-rig task; nothing here belongs on the device).
 """
 
 from __future__ import annotations

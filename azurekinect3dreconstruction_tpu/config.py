@@ -109,7 +109,7 @@ class RegistrationConfig:
     0.2-0.3 mirror the reference's de-facto accuracy bars
     (GoodColorReconstruction.py:183,200,256; CreateMesh.py:640;
     Works2CamerasCOLORVisualizer.py:539). RANSAC budget in the reference is
-    4,000,000 sequential host iterations (CreateMesh.py:245); on TPU we run a
+    4,000,000 sequential host iterations (CreateMesh.py:245); on the device we run a
     much smaller number of *parallel* hypotheses with the same acceptance
     statistics.
     """

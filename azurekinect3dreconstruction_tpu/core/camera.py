@@ -188,7 +188,7 @@ def pixel_rays(intr: Intrinsics, distortion: Optional[Distortion] = None, dtype=
 
     For a distorted camera this is the undistortion LUT: each *observed* pixel
     maps to the normalized ray that produced it. Computed once per session and
-    reused by every backprojection — the TPU-side equivalent of the k4a SDK's
+    reused by every backprojection — the device-side equivalent of the k4a SDK's
     internal undistortion tables.
     """
     u = jnp.arange(intr.width, dtype=dtype)

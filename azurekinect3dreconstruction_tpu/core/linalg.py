@@ -1,10 +1,9 @@
-"""Tiny fixed-size linear algebra, unrolled for TPU.
+"""Tiny fixed-size linear algebra, unrolled.
 
-``jnp.linalg.solve`` on a 6x6 system lowers to a loopy LU custom call that
-costs ~1.2 ms PER SOLVE on TPU — more than an entire Pallas warp-and-reduce
-odometry iteration over a 640x576 frame. Every Gauss-Newton step in this
-framework solves a 6x6 SPD system (JtJ + damping), so the solve is fully
-unrolled scalar arithmetic that XLA fuses into the surrounding kernel.
+``jnp.linalg.solve`` on a 6x6 system lowers to a loopy LU custom call (a
+separate library call per solve). Every Gauss-Newton step in this framework
+solves a 6x6 SPD system (JtJ + damping), so the solve is fully unrolled
+scalar arithmetic that XLA fuses into the surrounding kernel.
 """
 
 from __future__ import annotations

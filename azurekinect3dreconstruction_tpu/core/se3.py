@@ -18,8 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# All matmuls in this module are 3x3/4x4: force full f32 MXU precision (the
-# TPU default is bf16 inputs — a ~1e-3 relative error that would corrupt pose
+# All matmuls in this module are 3x3/4x4: force full f32 precision (an
+# accelerator default may be bf16 or TF32 inputs — a ~1e-3 relative error that would corrupt pose
 # chains). These contractions are trivially small; HIGHEST costs nothing.
 _PP = jax.lax.Precision.HIGHEST
 
@@ -150,7 +150,7 @@ def inverse(T):
 def compose_renormalized(T_a, T_b):
     """``T_a @ T_b`` with the rotation snapped back to SO(3).
 
-    Long pose chains compose in f32 on device (TPU f64 is emulated); of the
+    Long pose chains compose in f32 on device (device f64 is slow or emulated); of the
     two f32 error modes, translation rounding is a benign ~1e-7 random walk,
     but rotation non-orthogonality compounds MULTIPLICATIVELY through the
     chain — so snap R with one Newton iteration of the polar decomposition
@@ -167,8 +167,8 @@ def compose_renormalized(T_a, T_b):
 def transform_points(T, pts):
     """Apply 4x4 to (..., 3) points.
 
-    Full-f32 matmul precision: on TPU the MXU defaults to bf16 inputs, whose
-    ~3 significant digits would inject millimeter-scale error at room range —
+    Full-f32 matmul precision: a TF32 or bf16 default keeps ~3 significant
+    digits, which would inject millimeter-scale error at room range —
     on par with the 5 mm voxels we fuse into. These K=3 contractions are
     bandwidth-bound anyway, so HIGHEST costs nothing.
     """

@@ -8,7 +8,7 @@ the width*1.03 fallback (Visualizer-base.py:99-112), and BGRA->RGB +
 ``transformed_depth`` consumption (GoodColorReconstruction.py:127-128,151-160).
 
 Everything degrades cleanly when pyk4a is not installed (the normal state in
-CI/TPU pods): ``is_available()`` is False and the replay/synthetic sources
+CI/GPU hosts): ``is_available()`` is False and the replay/synthetic sources
 serve every pipeline instead.
 """
 

@@ -9,7 +9,7 @@ SIGINT handler + join(timeout=1) shutdown (:19-26,899-903), capture retry
 with backoff (:165-167) and the all-or-nothing synchronized multi-camera
 grab with 5 retries (InitialReconstruction-CUDA-2cam:210-225).
 
-``DeviceFeeder`` adds the TPU piece the reference never had: a two-deep
+``DeviceFeeder`` adds the device piece the reference never had: a two-deep
 device-side buffer so ``device_put`` of frame k+1 overlaps compute on frame k
 (SURVEY.md §7.3 host<->device streaming).
 """

@@ -9,7 +9,7 @@ middle rung (meshing.poisson delegates here when Open3D is absent).
 
 Why host-side: ball pivoting is an advancing-front algorithm — each accepted
 triangle changes which edge is pivoted next, a serial data-dependent chain
-with no batch parallelism to offer a TPU (SURVEY.md §7.3's reasoning for
+with no batch parallelism to offer an accelerator (SURVEY.md §7.3's reasoning for
 Poisson applies verbatim). It runs at save/export cadence on clouds that the
 callers have already voxel-downsampled, where a numpy front loop is fine;
 the per-edge candidate math (circumcenters, empty-ball tests) is vectorized

@@ -4,7 +4,7 @@ The reference meshes saved clouds with Open3D's Poisson reconstruction
 (depth 9, density-quantile culling) falling back to ball pivoting
 (reference CreateMesh.py:32-70, CodeThatKindaWorks/PointCloudToMesh.py:6-119,
 BetterVisualizerD2camerasWorks1Cam.py:426-444). Poisson's octree solver is
-not TPU-shaped (SURVEY.md §7.3), so it stays a host-side Open3D delegate;
+not accelerator-shaped (SURVEY.md §7.3), so it stays a host-side Open3D delegate;
 ball pivoting has a first-party implementation (meshing.ball_pivot) that
 this module falls back to when Open3D is absent. The TSDF -> marching-cubes
 path is the framework's primary mesher (it is what the reference's "works"

@@ -2,8 +2,8 @@
 
 The reference meshes saved clouds with Open3D's Poisson solver
 (CreateMesh.py:32-70, PointCloudToMesh.py:6-119) — an octree multigrid that
-is neither TPU-shaped nor available without Open3D. This module provides the
-TPU-native equivalent of that capability: a VRIP/SSD-style narrow-band
+is neither accelerator-shaped nor available without Open3D. This module provides the
+device-native equivalent of that capability: a VRIP/SSD-style narrow-band
 signed-distance field built by SPLATTING oriented points into the block-pool
 volume (every operation is a fixed-shape hash lookup, elementwise kernel
 weight, or scatter-add — exactly the machinery TSDF integration already

@@ -1,6 +1,6 @@
 """Depth -> point-cloud backprojection (organized and flat forms).
 
-TPU-native replacement for Open3D's ``PointCloud.create_from_rgbd_image`` /
+Device-native replacement for Open3D's ``PointCloud.create_from_rgbd_image`` /
 ``create_from_depth_image`` (used at reference CreateMesh.py:584-594 and
 CodeThatKindaWorks/Depth2PC.py:60-84). The whole op is a per-pixel FMA over a
 precomputed ray table (:func:`..core.camera.pixel_rays`), which XLA fuses into

@@ -2,7 +2,7 @@
 
 The reference consumes ``capture.transformed_depth`` everywhere
 (CreateMesh.py:151-163, GoodColorReconstruction.py:151-160) — the Azure
-Kinect SDK computes it natively on the host. This is the TPU-native
+Kinect SDK computes it natively on the host. This is the device-native
 equivalent: backproject the depth image through the depth camera's (possibly
 distorted) ray table, transform into the color camera with the calibration
 extrinsic, project with the color intrinsics, and z-buffer with a scatter-min

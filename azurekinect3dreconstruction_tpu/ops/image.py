@@ -32,14 +32,9 @@ def rgb_to_intensity(rgb):
     return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
 
 
-# Pyramid/gradient glue is SHIFT-ADD f32 on the VPU, not conv_general_dilated.
-# Measured on TPU v5e (round 3, _probe_odo A/B, full Pallas odometry frame):
-# 1-channel 3x3/5x5 convs look fast in isolation (~0.1 ms for the whole
-# per-frame set at Precision.HIGHEST) but as producers of the Pallas level
-# kernel's inputs they force layout changes / fusion breaks that take the
-# frame from 13.4 ms to 35 ms. The shifted-slice form is exact f32, fuses
-# into the pad+stack that feeds the kernel, and keeps the MXU out of what is
-# a bandwidth-bound stencil.
+# Pyramid/gradient glue is SHIFT-ADD f32, not conv_general_dilated: the
+# shifted-slice form is exact f32, fuses into its consumers, and keeps the
+# matrix units out of what is a bandwidth-bound stencil.
 
 
 def _gauss_blur(img):
@@ -68,7 +63,7 @@ def downsample2_depth(depth):
     if h % 2 or w % 2:  # odd extents: keep the strided form (trace-time branch)
         return d[::2, ::2]
     # even extents (every sensor mode): reshape + unit-stride slice instead of
-    # a 2-strided gather — the reshape is a free layout change on TPU
+    # a 2-strided gather — the reshape is a free layout change
     return d.reshape(h // 2, 2, w // 2, 2)[:, 0, :, 0]
 
 

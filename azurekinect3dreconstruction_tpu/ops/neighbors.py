@@ -3,7 +3,7 @@
 Open3D backs ``voxel_down_sample`` / ``remove_statistical_outlier`` /
 ``estimate_normals`` / FPFH on a C++ KDTreeFlann (used at reference
 CreateMesh.py:581-607, azure-kinect-DK/Reconstruction/Reconstruction.py:80-95).
-KD-trees are pointer-chasing machines — hostile to TPUs. Everything here is
+KD-trees are pointer-chasing machines — hostile to accelerators. Everything here is
 built from two fixed-shape primitives instead:
 
 - ``sort`` by packed voxel key (runs of equal keys = points in one cell)

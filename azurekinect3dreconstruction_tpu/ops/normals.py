@@ -6,7 +6,7 @@ Reconstruction.py:80-95, orient_normals_consistent_tangent_plane at
 Reconstruction-ResourceEfficient.py:169):
 
 - :func:`organized_normals` — O(1)-neighborhood cross-product normals on an
-  organized depth/point map (the TPU-friendly path used by projective ICP and
+  organized depth/point map (the device-friendly path used by projective ICP and
   live viz; fully fused elementwise math, no neighbor search at all).
 - :func:`estimate_normals_grid` — local-PCA normals for unorganized clouds
   using voxel-grid hashing for neighborhoods (fixed K candidates/cell instead

@@ -2,12 +2,13 @@
 
 The reference's only concurrency is one capture thread per camera feeding a
 queue (reference CreateMesh.py:72-189; SURVEY.md §2.3 — no distributed
-anything). The TPU-native scale-out story replaces that with SPMD over a
+anything). The scale-out story here replaces that with SPMD over a
 ``jax.sharding.Mesh`` with two axes:
 
-- ``cam`` (data parallel): each camera's frame lives on its own mesh row;
-  per-voxel TSDF observations are *order-independent weighted sums*, so
-  multi-camera fusion is literally a ``psum`` over the cam axis.
+- ``cam`` (data parallel): each camera's frame lives on its own mesh row
+  (decode, allocation candidates and odometry run there); the frames are
+  all_gathered over cam and every device fuses all of them into its shard
+  with the frustum-worklist integrate.
 - ``blk`` (spatial parallel — this project's "tensor/sequence parallelism"):
   every device owns an independent sub-volume (hash + block pool) responsible
   for the block keys that hash to its shard. Allocation broadcasts candidate
@@ -15,10 +16,10 @@ anything). The TPU-native scale-out story replaces that with SPMD over a
   and each shard inserts only the keys it owns, so the pools never overlap
   and extraction is a disjoint union.
 
-All collectives ride ICI inside one jitted ``shard_map`` step; the host never
+All collectives run inside one jitted ``shard_map`` step; the host never
 touches per-frame data. Capacity scales linearly with blk (each shard holds
-``block_capacity`` blocks), and per-step work scales 1/blk for integration
-and 1/cam for projection math.
+``block_capacity`` blocks), and integration work scales 1/blk (each shard
+culls its worklist to the blocks it owns).
 """
 
 from __future__ import annotations
@@ -84,8 +85,7 @@ def _alloc_shard(local: TSDFVolume, depth, pose, rays,
                  stride: int, samples: int, dedup_budget: int) -> TSDFVolume:
     """Per-(cam, blk)-device allocation body (inside shard_map): insert into
     this blk shard the keys IT OWNS out of ALL cameras' candidate key sets
-    (one kilobyte-scale all_gather over cam). Shared by the psum and
-    sequential-Pallas fusion paths."""
+    (one kilobyte-scale all_gather over cam)."""
     my_blk = jax.lax.axis_index("blk")
 
     d = depth[::stride, ::stride]
@@ -124,88 +124,23 @@ def _alloc_shard(local: TSDFVolume, depth, pose, rays,
                           overflow=local.overflow | overflowed)
 
 
-def _integrate_psum(local: TSDFVolume, depth, color, pose,
-                    intr: Intrinsics, cfg: TSDFConfig) -> TSDFVolume:
-    """Dense fused update: my camera's observations into my shard, psum of
-    the observation sums over cam (order-independent weighted average). The
-    backend-portable path — runs anywhere, but the per-voxel image gather
-    over the WHOLE pool makes it ~45x slower than the Pallas worklist path
-    on real chips (docs/PERF.md); the TPU SLAM step uses
-    :func:`_integrate_pallas_seq` instead."""
-    T_cw = se3.inverse(pose)
-    Nl = local.tsdf.shape[0]
-    Vl = cfg.block_resolution ** 3
-    t_v = local.tsdf.reshape(Nl, Vl)
-    w_v = local.weight.reshape(Nl, Vl)
-    c_v = local.color.reshape(Nl, 3, Vl)
-    pts_w = tsdf_volume.voxel_world_centers(local.block_coords, cfg)
-    pc = se3.transform_points(T_cw, pts_w.reshape(-1, 3)).reshape(pts_w.shape)
-    z = pc[..., 2]
-    zs = jnp.maximum(z, 1e-6)
-    u = pc[..., 0] / zs * intr.fx + intr.cx
-    v = pc[..., 1] / zs * intr.fy + intr.cy
-    ui = jnp.round(u).astype(jnp.int32)
-    vi = jnp.round(v).astype(jnp.int32)
-    inb = ((z > 1e-4) & (ui >= 0) & (vi >= 0)
-           & (ui < intr.width) & (vi < intr.height))
-    uic = jnp.clip(ui, 0, intr.width - 1)
-    vic = jnp.clip(vi, 0, intr.height - 1)
-    dsmp = depth[vic, uic]
-    sdf = dsmp - z
-    alive = jax.lax.broadcasted_iota(jnp.int32, (Nl, 1), 0) < local.n_blocks
-    upd = inb & (dsmp > 0) & (sdf > -cfg.sdf_trunc) & alive
-    tsdf_obs = jnp.minimum(sdf / cfg.sdf_trunc, 1.0)
-    csmp = jnp.swapaxes(color[vic, uic], 1, 2)  # (N, 3, V)
-
-    w_obs = upd.astype(jnp.float32)
-    dw = jax.lax.psum(w_obs, "cam")
-    dwt = jax.lax.psum(w_obs * tsdf_obs, "cam")
-    dwc = jax.lax.psum(w_obs[:, None, :] * csmp, "cam")
-    w_old = w_v
-    w_new = jnp.minimum(w_old + dw, cfg.max_integration_weight)
-    denom = jnp.maximum(w_old + dw, 1e-9)
-    t_new = jnp.where(dw > 0, (t_v * w_old + dwt) / denom, t_v)
-    c_new = jnp.where((dw > 0)[:, None, :],
-                      (c_v * w_old[:, None, :] + dwc) / denom[:, None, :],
-                      c_v)
-    return local._replace(tsdf=t_new.reshape(local.tsdf.shape),
-                          weight=w_new.reshape(local.weight.shape),
-                          color=c_new.reshape(local.color.shape))
-
-
-def _integrate_pallas_seq(local: TSDFVolume, depths_all, colors_all,
-                          poses_all, intr: Intrinsics, cfg: TSDFConfig,
-                          worklist_size: int,
-                          interpret: bool = False) -> TSDFVolume:
-    """TPU fusion body: sequentially integrate EVERY camera's (all_gathered)
-    frame into my shard with the Pallas worklist kernel. Replicas along the
-    cam axis compute identical pool states, so no pool-sized psum is needed —
-    the only collective is the kilobyte-to-megabyte frame all_gather done by
-    the caller. Sequential weighted-average fusion equals the psum form
-    exactly while weights stay below ``max_integration_weight`` (both reduce
-    to (t*w0 + sum dwt) / (w0 + sum dw)); at the clamp they differ by at most
-    one frame's observation, the same semantics as single-device sequential
-    integration."""
-    from azurekinect3dreconstruction_tpu.ops.pallas.tsdf_kernels import (
-        integrate_worklist,
-    )
-
-    for ci in range(depths_all.shape[0]):
-        local = integrate_worklist(local, depths_all[ci], colors_all[ci],
-                                   poses_all[ci], intr, cfg,
-                                   worklist_size=worklist_size,
-                                   interpret=interpret)
+def _integrate_cameras(local: TSDFVolume, depth, color, pose,
+                       intr: Intrinsics, cfg: TSDFConfig,
+                       worklist_size: int) -> TSDFVolume:
+    """Fuse EVERY camera's frame into my shard: all_gather the frames over
+    cam, then integrate them in camera order with the worklist form
+    (:func:`tsdf.integrate_worklist`), each culled to my shard's blocks.
+    Replicas along the cam axis compute the same pool state, so no
+    pool-sized collective is needed; the result is exactly single-device
+    sequential integration of the same frames after one joint allocate."""
+    depths = jax.lax.all_gather(depth, "cam")
+    colors = jax.lax.all_gather(color, "cam")
+    poses = jax.lax.all_gather(pose, "cam")
+    for ci in range(depths.shape[0]):
+        local = tsdf_volume.integrate_worklist(
+            local, depths[ci], colors[ci], poses[ci], intr, cfg,
+            worklist_size=worklist_size)
     return local
-
-
-def _resolve_backend(backend: str):
-    """(use_pallas, interpret) — thin alias over the shared policy
-    (core/backend.py) so every step builder resolves identically,
-    INCLUDING the forced-Pallas-off-TPU parity case, whose kernels must
-    run under the interpreter instead of failing Mosaic lowering."""
-    from azurekinect3dreconstruction_tpu.core.backend import resolve_backend
-
-    return resolve_backend(backend)
 
 
 _VOL_SPECS = (P("blk"), P("blk"), P("blk"), P("blk"), P("blk"), P("blk"),
@@ -214,49 +149,37 @@ _VOL_SPECS = (P("blk"), P("blk"), P("blk"), P("blk"), P("blk"), P("blk"),
 
 def _fuse_cam_shard(local: TSDFVolume, depth, color, pose, rays,
                     intr: Intrinsics, cfg: TSDFConfig, n_blk: int, stride: int,
-                    samples: int, dedup_budget: int, pallas: bool,
-                    worklist_size: int, interp: bool) -> TSDFVolume:
+                    samples: int, dedup_budget: int,
+                    worklist_size: int) -> TSDFVolume:
     """Per-(cam, blk)-device fusion body shared by every sharded step: this
-    camera's frame allocates into the local shard, then the shard integrates
-    ALL cameras' frames (Pallas path: frame all_gather over the cam axis;
-    XLA path: dense psum update — identical semantics, see docstrings)."""
+    camera's frame allocates into the local shard, then the shard fuses ALL
+    cameras' frames (:func:`_integrate_cameras`)."""
     local = _alloc_shard(local, depth, pose, rays, cfg, n_blk,
                          stride, samples, dedup_budget)
-    if pallas:
-        dall = jax.lax.all_gather(depth, "cam")
-        call_ = jax.lax.all_gather(color, "cam")
-        Tall = jax.lax.all_gather(pose, "cam")
-        local = _integrate_pallas_seq(local, dall, call_, Tall, intr,
-                                      cfg, worklist_size, interp)
-    else:
-        local = _integrate_psum(local, depth, color, pose, intr, cfg)
-    return local
+    return _integrate_cameras(local, depth, color, pose, intr, cfg,
+                              worklist_size)
 
 
 def make_sharded_step(mesh: Mesh, intr: Intrinsics, cfg: TSDFConfig,
                       stride: int = 4, samples: int = 3,
-                      dedup_budget: int = 2048, backend: str = "auto",
-                      worklist_size: int = 2048):
+                      dedup_budget: int = 2048, worklist_size: int = 2048):
     """Build the jitted multi-camera fusion step.
 
     step(vol, depths (n_cam, H, W), colors (n_cam, H, W, 3),
          poses (n_cam, 4, 4), rays (H, W, 2)) -> vol
 
     Per (cam, blk) device: allocate its shard from ALL cameras' candidate
-    keys, then fuse. ``backend`` picks the fusion body ("auto" = Pallas
-    worklist kernel on TPU via :func:`_integrate_pallas_seq`, dense
-    psum-fused XLA elsewhere — identical semantics, see docstrings).
+    keys, then fuse every camera's frame (:func:`_integrate_cameras`;
+    ``worklist_size`` bounds the visible blocks of one shard per camera).
     """
     n_blk = mesh.shape["blk"]
-    pallas, interp = _resolve_backend(backend)
 
     def step(vol: TSDFVolume, depths, colors, poses, rays):
         def shard_fn(tk, tv, nb, bc, ts, wg, co, ovf, depth, color, pose, rays):
             local = TSDFVolume(tk, tv, nb[0], bc, ts, wg, co, ovf[0])
             local = _fuse_cam_shard(local, depth[0], color[0], pose[0], rays,
                                     intr, cfg, n_blk, stride, samples,
-                                    dedup_budget, pallas, worklist_size,
-                                    interp)
+                                    dedup_budget, worklist_size)
             return (local.table_keys, local.table_vals, local.n_blocks[None],
                     local.block_coords, local.tsdf, local.weight, local.color,
                     local.overflow[None])
@@ -279,7 +202,7 @@ def make_sharded_step(mesh: Mesh, intr: Intrinsics, cfg: TSDFConfig,
 
 def make_sharded_raw_step(mesh: Mesh, intr: Intrinsics, cfg: TSDFConfig,
                           stride: int = 4, samples: int = 3,
-                          dedup_budget: int = 2048, backend: str = "auto",
+                          dedup_budget: int = 2048,
                           worklist_size: int = 2048):
     """The sharded fusion step fed RAW sensor arrays — the live dual-camera
     hot path (reference CreateMesh.py:723-833 eagerly converts both frames
@@ -303,7 +226,6 @@ def make_sharded_raw_step(mesh: Mesh, intr: Intrinsics, cfg: TSDFConfig,
     )
 
     n_blk = mesh.shape["blk"]
-    pallas, interp = _resolve_backend(backend)
 
     def step(vol: TSDFVolume, depth_raw, color_raw, poses, rays, cam_on,
              inv_scale, depth_min, depth_trunc):
@@ -314,8 +236,7 @@ def make_sharded_raw_step(mesh: Mesh, intr: Intrinsics, cfg: TSDFConfig,
             d = d * on[0]
             local = _fuse_cam_shard(local, d, c, pose[0], rays,
                                     intr, cfg, n_blk, stride, samples,
-                                    dedup_budget, pallas, worklist_size,
-                                    interp)
+                                    dedup_budget, worklist_size)
             return (local.table_keys, local.table_vals, local.n_blocks[None],
                     local.block_coords, local.tsdf, local.weight, local.color,
                     local.overflow[None])
@@ -344,7 +265,6 @@ def make_sharded_slam_batch(mesh: Mesh, intr: Intrinsics, pcfg,
                             stride: int = 4, samples: int = 3,
                             dedup_budget: int = 2048,
                             min_fitness: float = 0.3,
-                            backend: str = "auto",
                             worklist_size: int = 2048):
     """Multi-chip SLAM: every camera row TRACKS its own stream (hybrid GN
     odometry, replicated over its blk columns — odometry is per-camera
@@ -358,13 +278,6 @@ def make_sharded_slam_batch(mesh: Mesh, intr: Intrinsics, pcfg,
 
     Frame 0 of each stream is the tracking reference (pose T0[cam]); frames
     1..F-1 are tracked against their predecessor and integrated.
-
-    ``backend`` ("auto" = pallas on TPU, xla elsewhere) picks BOTH hot
-    bodies: odometry (Pallas whole-level GN kernel vs the XLA pyramid
-    solver — same gates/inverse/precision semantics, ~45x apart on real
-    chips per docs/PERF.md) and fusion (Pallas worklist integrate after a
-    frame all_gather over cam vs the dense psum update). The XLA pair keeps
-    the same step compiling on the CPU dryrun mesh.
     """
     from azurekinect3dreconstruction_tpu.pipelines.mono_odometry_tsdf import (
         apply_odometry_gate,
@@ -374,16 +287,6 @@ def make_sharded_slam_batch(mesh: Mesh, intr: Intrinsics, pcfg,
     n_blk = mesh.shape["blk"]
     cfg = pcfg.tsdf
     ocfg = pcfg.odometry
-    pallas, interp = _resolve_backend(backend)
-    if pallas:
-        from azurekinect3dreconstruction_tpu.ops.pallas.odometry_kernels import (
-            compute_odometry_tpu,
-        )
-
-        odo = lambda pi, pd, i, d: compute_odometry_tpu(pi, pd, i, d, intr,
-                                                         ocfg, interpret=interp)
-    else:
-        odo = lambda pi, pd, i, d: compute_odometry(pi, pd, i, d, intr, ocfg)
 
     def batch(vol: TSDFVolume, T0, intensities, depths, colors, rays):
         def shard_fn(tk, tv, nb, bc, ts, wg, co, ovf,
@@ -397,12 +300,13 @@ def make_sharded_slam_batch(mesh: Mesh, intr: Intrinsics, pcfg,
             def body(carry, fr):
                 local, T_prev, prev_int, prev_depth = carry
                 inten, d, c = fr
-                res = odo(prev_int, prev_depth, inten, d)
+                res = compute_odometry(prev_int, prev_depth, inten, d, intr,
+                                       ocfg)
                 # same gate (and -1-fitness failure marker) as the flat steps
                 T, fit = apply_odometry_gate(T_prev, res, min_fitness)
                 local2 = _fuse_cam_shard(local, d, c, T, rays, intr, cfg,
                                          n_blk, stride, samples, dedup_budget,
-                                         pallas, worklist_size, interp)
+                                         worklist_size)
                 return (local2, T, inten, d), (T, fit)
 
             init = (local, jnp.asarray(T0c, jnp.float32), intens[0], depth[0])

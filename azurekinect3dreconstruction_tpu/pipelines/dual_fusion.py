@@ -8,7 +8,7 @@ refinement on recalibration ('R' key) (:221-284, :609-665, overlap gate
 >= 0.2 at :640), clouds merge + voxel-downsample for display (:766-829),
 depth-gradient color modes (:685-721), and 'S' saves PLY + meshes (:414-462).
 
-TPU-first differences: the calibrated hot loop is ONE jitted dispatch per
+Device-first differences: the calibrated hot loop is ONE jitted dispatch per
 frame pair — decode of BOTH raw sensor frames + allocate + integrate for
 both cameras fuse into a single executable (:func:`make_raw_dual_step`;
 the reference eagerly converts each frame on the host every loop,
@@ -61,14 +61,13 @@ class DualCameraFusion:
 
     def __init__(self, intrinsics: Tuple[Intrinsics, Intrinsics],
                  config: Optional[PipelineConfig] = None,
-                 backend: str = "auto", output_dir: str = "results",
+                 output_dir: str = "results",
                  sharded: bool = False, colored_calibration: bool = False):
         """``colored_calibration``: route the auto-calibration and 'R'-key
         recalibration through the colored-ICP refinement (see
         :meth:`calibrate`)."""
         self.intr = list(intrinsics)
         self.cfg = config or PipelineConfig()
-        self.backend = backend
         self.colored_calibration = colored_calibration
         self.rays = [pixel_rays(i) for i in self.intr]
         # camera 0 defines the world frame; extrinsics[i] = T_world_cam_i
@@ -86,27 +85,25 @@ class DualCameraFusion:
 
         # sharded execution mode (SURVEY.md §2.3's prescribed design):
         # camera-per-mesh-row, volume block-sharded over the remaining
-        # devices; collectives ride ICI inside one jitted step
+        # devices; collectives run inside one jitted step
         self.sharded = False
         if sharded:
             from azurekinect3dreconstruction_tpu.parallel import sharded_volume as sv
 
             n_dev = len(jax.devices())
             if n_dev < 2:
-                log_warning(f"sharded dual fusion needs >= 2 devices, "
-                            f"have {n_dev}; falling back to single-device")
-            elif self.intr[0] != self.intr[1]:
-                log_warning("sharded dual fusion requires identical camera "
-                            "intrinsics; falling back to single-device")
-            else:
-                self._sv = sv
-                self.mesh = sv.make_mesh(2, n_dev // 2)
-                self.volume = sv.create_sharded(self.cfg.tsdf, self.mesh)
-                self._sharded_step = sv.make_sharded_raw_step(
-                    self.mesh, self.intr[0], self.cfg.tsdf, stride=2,
-                    backend=self.backend)
-                self.sharded = True
-                log_info(f"sharded dual fusion: mesh cam=2 x blk={n_dev // 2}")
+                raise ValueError(f"sharded dual fusion needs >= 2 devices, "
+                                 f"have {n_dev}")
+            if self.intr[0] != self.intr[1]:
+                raise ValueError("sharded dual fusion requires identical "
+                                 "camera intrinsics")
+            self._sv = sv
+            self.mesh = sv.make_mesh(2, n_dev // 2)
+            self.volume = sv.create_sharded(self.cfg.tsdf, self.mesh)
+            self._sharded_step = sv.make_sharded_raw_step(
+                self.mesh, self.intr[0], self.cfg.tsdf, stride=2)
+            self.sharded = True
+            log_info(f"sharded dual fusion: mesh cam=2 x blk={n_dev // 2}")
         if not self.sharded:
             self.volume = tsdf.create(self.cfg.tsdf)
 
@@ -217,8 +214,7 @@ class DualCameraFusion:
     def _get_dual_step(self):
         if self._dual_step is None:
             self._dual_step = make_raw_dual_step(
-                self.intr[0], self.intr[1], self.cfg.tsdf,
-                backend=self.backend)
+                self.intr[0], self.intr[1], self.cfg.tsdf)
         return self._dual_step
 
     # -- streaming -------------------------------------------------------------
@@ -341,8 +337,7 @@ class DualCameraFusion:
 
 @functools.lru_cache(maxsize=None)
 def make_raw_dual_step(intr0: Intrinsics, intr1: Intrinsics, tcfg,
-                       worklist_size: int = 2048, stride: int = 2,
-                       backend: str = "auto"):
+                       worklist_size: int = 2048, stride: int = 2):
     """The two-camera live hot path (the repo's namesake pipeline): ONE
     jitted dispatch per frame PAIR, fed raw sensor arrays. Decode for both
     cameras, allocation and integration of both frames all fuse into a
@@ -361,24 +356,13 @@ def make_raw_dual_step(intr0: Intrinsics, intr1: Intrinsics, tcfg,
     uncalibrated warm-up frames. Decode scalars are traced for the live
     '=/-/[/]' depth retuning (reference CreateMesh.py:470-501).
     """
-    from azurekinect3dreconstruction_tpu.core.backend import resolve_backend
     from azurekinect3dreconstruction_tpu.pipelines.mono_odometry_tsdf import (
         decode_raw_frame,
     )
 
-    use_pallas, interp = resolve_backend(backend)
-    if use_pallas:
-        from azurekinect3dreconstruction_tpu.ops.pallas.tsdf_kernels import (
-            integrate_step,
-        )
-
-        def fuse(vol, d, c, T, rays, intr):
-            return integrate_step(vol, d, c, T, rays, intr, tcfg,
-                                  worklist_size, stride, interp)
-    else:
-        def fuse(vol, d, c, T, rays, intr):
-            vol = tsdf.allocate(vol, d, rays, T, tcfg, stride=stride)
-            return tsdf.integrate(vol, d, c, T, intr, tcfg)
+    def fuse(vol, d, c, T, rays, intr):
+        return tsdf.integrate_frame(vol, d, c, rays, T, intr, tcfg,
+                                    stride=stride, worklist_size=worklist_size)
 
     def step(vol, depth_raw0, color_raw0, depth_raw1, color_raw1, rays0,
              rays1, T0, T1, inv_scale, depth_min, depth_trunc, cam1_on):

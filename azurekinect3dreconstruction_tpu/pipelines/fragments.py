@@ -5,7 +5,7 @@ Pipeline parity: reference azure-kinect-DK/Reconstruction/3Dreconstruction.py
 (the documented 4-stage "Open3D reconstruction system" layout :1-7):
 ``make_fragments`` builds a processed cloud + surface mesh per captured
 frame (:81-110 — reference meshes each fragment with Poisson; here a
-single-frame TSDF + marching cubes plays that role, TPU-native),
+single-frame TSDF + marching cubes plays that role, device-native),
 ``register_fragments`` coarsely aligns each fragment to fragment 0 with
 POINT-TO-POINT ICP on 100k uniformly sampled mesh points (:112-135 uses
 ``TransformationEstimationPointToPoint`` on ``sample_points_uniformly``
@@ -49,12 +49,11 @@ class Fragment:
 
 class FragmentPipeline:
     def __init__(self, intrinsics: Intrinsics,
-                 config: Optional[PipelineConfig] = None, backend: str = "auto",
+                 config: Optional[PipelineConfig] = None,
                  downsample: float = 0.02, capacity: int = 16384,
                  mesh_fragments: bool = True, sample_points: int = 100_000):
         self.intr = intrinsics
         self.cfg = config or PipelineConfig()
-        self.backend = backend
         self.rays = pixel_rays(intrinsics)
         self.downsample = downsample
         self.capacity = capacity
@@ -94,7 +93,7 @@ class FragmentPipeline:
         """Per-fragment surface mesh + uniform samples: the reference meshes
         each fragment (Poisson, :97-108) and registers sampled points
         (:118-122); here the surface comes from a single-frame TSDF +
-        marching cubes (the TPU-native mesher)."""
+        marching cubes (the device-native mesher)."""
         import dataclasses as _dc
 
         from azurekinect3dreconstruction_tpu.meshing.sampling import (
@@ -107,8 +106,7 @@ class FragmentPipeline:
         vol = tsdf.create(fcfg)
         vol = tsdf.integrate_frame(
             vol, frag.frame.depth, frag.frame.color, self.rays,
-            jnp.eye(4, dtype=jnp.float32), self.intr, fcfg,
-            backend=self.backend)
+            jnp.eye(4, dtype=jnp.float32), self.intr, fcfg)
         mesh = mc.extract_mesh(vol, fcfg).compact()
         mesh = mc.weld_vertices(mesh).compute_vertex_normals()
         cloud = sample_points_uniformly(mesh, self.sample_points, seed=0)
@@ -162,7 +160,6 @@ class FragmentPipeline:
             vol = tsdf.integrate_frame(
                 vol, frag.frame.depth, frag.frame.color, self.rays,
                 jnp.asarray(frag.pose, jnp.float32), self.intr, self.cfg.tsdf,
-                backend=self.backend,
             )
         self.volume = vol
         mesh = mc.extract_mesh(vol, self.cfg.tsdf).compact()

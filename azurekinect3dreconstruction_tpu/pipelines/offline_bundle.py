@@ -37,12 +37,11 @@ from azurekinect3dreconstruction_tpu.viz.savers import ResultSaver
 
 class OfflineBundle:
     def __init__(self, intrinsics: Intrinsics, config: Optional[PipelineConfig] = None,
-                 output_dir: str = "reconstruction_output", backend: str = "auto",
+                 output_dir: str = "reconstruction_output",
                  loop_radius: float = 0.5, loop_min_gap: int = 20,
                  loop_check_interval: int = 10, checkpoint_interval: int = 100):
         self.intr = intrinsics
         self.cfg = config or PipelineConfig()
-        self.backend = backend
         self.rays = pixel_rays(intrinsics)
         self.output_dir = output_dir
         self.frames_dir = os.path.join(output_dir, "frames")
@@ -186,7 +185,6 @@ class OfflineBundle:
         next chunk's raw frames upload while the current one computes.
         The reference pays a per-frame Open3D integrate here
         (bundlefusion_reconstruction.py:329-344)."""
-        from azurekinect3dreconstruction_tpu.core.backend import resolve_backend
         from azurekinect3dreconstruction_tpu.pipelines.mono_odometry_tsdf import (
             make_raw_batch_fn,
         )
@@ -196,10 +194,7 @@ class OfflineBundle:
         n = min(len(src), len(self.graph.nodes))
         if n == 0:
             return volume
-        use_pallas, interp = resolve_backend(self.backend)
-        batch_fn = make_raw_batch_fn(
-            self.intr, self.cfg.tsdf,
-            backend="pallas" if use_pallas else "xla", interpret=interp)
+        batch_fn = make_raw_batch_fn(self.intr, self.cfg.tsdf)
         scalars = (np.float32(1.0 / cam.depth_scale),
                    np.float32(cam.depth_min), np.float32(cam.depth_trunc))
 

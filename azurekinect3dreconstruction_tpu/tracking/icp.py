@@ -1,6 +1,6 @@
 """ICP: point-to-plane and colored variants with projective data association.
 
-TPU-native replacement for Open3D's ``registration_icp`` (point-to-plane,
+Device-native replacement for Open3D's ``registration_icp`` (point-to-plane,
 reference CreateMesh.py:258-262, GoodColorReconstruction.py:189-204) and
 ``registration_colored_icp`` (GoodColorReconstruction.py:246-254).
 
@@ -222,7 +222,7 @@ def icp_grid(src_points, src_mask, tgt_points, tgt_normals, tgt_mask,
 
     Correspondences are 1-NN through the voxel-grid hash (cell size =
     dist_thr, so the 27-cell search is complete within the gate) — the
-    TPU-shaped stand-in for Open3D's KDTree used by ``registration_icp``
+    Device-shaped stand-in for Open3D's KDTree used by ``registration_icp``
     on clouds (reference azure-kinect-DK/Reconstruction/3Dreconstruction.py:
     112-160 fragment register/refine; Reconstruction.py:97-135).
     """
@@ -318,7 +318,7 @@ def icp_point_to_point(src_points, src_mask, tgt_points, tgt_mask,
         d = jnp.sign(jnp.linalg.det(jnp.matmul(vt.T, u.T, precision=_PP)))
         S = jnp.diag(jnp.stack([1.0 + 0 * d, 1.0 + 0 * d, d]))
         R = jnp.matmul(vt.T, jnp.matmul(S, u.T, precision=_PP), precision=_PP)
-        t = cq - R @ cp
+        t = cq - jnp.matmul(R, cp, precision=_PP)
         ok_R = jnp.all(jnp.isfinite(R)) & jnp.all(jnp.isfinite(t))
         dT = jnp.eye(4, dtype=jnp.float32)
         dT = dT.at[:3, :3].set(jnp.where(ok_R, R, jnp.eye(3)))

@@ -1,6 +1,6 @@
 """Hybrid photometric + geometric RGB-D odometry (Gauss–Newton, pyramids).
 
-TPU-native replacement for Open3D's ``compute_rgbd_odometry`` with the
+Device-native replacement for Open3D's ``compute_rgbd_odometry`` with the
 Hybrid/Color term Jacobians (used at reference
 CodeThatWorks/RGBD_Odometry.py:22-35,
 CodeThatWorks/1camera-detectsSceneChanges.py:235-260, and with pyramid
@@ -9,7 +9,7 @@ CodeThatWorks/bundlefusionattemps/bundlefusion_reconstruction.py:118-129).
 
 Everything is one jitted function: the image pyramid, the per-iteration
 dense warp, the per-pixel 6-dof Jacobians, and the (N,6)->(6,6) normal-
-equation reduction (a single MXU matmul). Control flow is a fixed
+equation reduction (a single matmul). Control flow is a fixed
 ``lax.fori_loop`` per level — no data-dependent Python branching, so one
 compilation serves every frame.
 

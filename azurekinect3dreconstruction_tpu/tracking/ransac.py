@@ -1,11 +1,11 @@
-"""Feature-based global registration: massively-parallel RANSAC on TPU.
+"""Feature-based global registration: massively-parallel RANSAC on the device.
 
 Replaces ``registration_ransac_based_on_feature_matching`` with edge-length +
 distance correspondence checkers (reference CreateMesh.py:236-246 runs
 4,000,000 *sequential* host iterations with 500-sample validation;
-GoodColorReconstruction.py:179-187 similar). The TPU formulation evaluates
+GoodColorReconstruction.py:179-187 similar). The device formulation evaluates
 thousands of hypotheses *simultaneously*: each hypothesis is a 4-sample
-Kabsch fit (batched 3x3 SVD on the MXU/VPU), checkers and inlier scoring are
+Kabsch fit (batched 3x3 SVD), checkers and inlier scoring are
 dense masked reductions over the full correspondence set — so the per-round
 cost is one batched pipeline instead of four million Python loop iterations.
 
@@ -40,7 +40,7 @@ def match_features(feat_src, feat_tgt, mask_src, mask_tgt, mutual: bool = True):
     """Nearest-neighbor feature correspondences (optionally mutual).
 
     Returns (corr_tgt_idx int32[N_src] (-1 where unmatched)). The (N,M)
-    distance matrix is one matmul — exactly what the MXU is for.
+    distance matrix is one matmul — exactly what matrix units are for.
     """
     fs = jnp.asarray(feat_src, jnp.float32)
     ft = jnp.asarray(feat_tgt, jnp.float32)
@@ -122,7 +122,7 @@ def ransac_registration(src_points, tgt_points, corr, key,
     R, t = _kabsch(s_pts, t_pts, w)  # (H,3,3), (H,3)
 
     # score each hypothesis over ALL correspondences
-    # (H, N, 3) = src @ R^T + t  — batched matmul on the MXU
+    # (H, N, 3) = src @ R^T + t  — batched matmul
     src_ok = jnp.where(ok[:, None], src, 0.0)
     proj = jnp.einsum("hij,nj->hni", R, src, precision=_PP) + t[:, None, :]
     d2 = jnp.sum((proj - q[None]) ** 2, axis=-1)  # (H, N)

@@ -181,7 +181,7 @@ class Relocalizer:
         """Smallest ladder voxel at which the cloud fits the feature budget
         with headroom. A saturated voxel_downsample_arrays silently drops
         overflow cells, and the dropped sets differ between clouds —
-        measured (TPU, full 640x576 frames, 1.5 cm start voxel) to cap both
+        measured (full 640x576 frames, 1.5 cm start voxel) to cap both
         clouds at the budget with divergent survivors and kill FPFH
         matching entirely (RANSAC overlap 0.11 vs 0.48 at the true pose).
         The ladder is x1.5 from ``downsample_voxel`` (one compile of the

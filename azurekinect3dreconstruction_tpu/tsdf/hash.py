@@ -1,6 +1,6 @@
 """Vectorized spatial hash for voxel-block coordinates (pure XLA).
 
-TPU-native replacement for the pointer-based spatial hashing inside Open3D's
+Device-native replacement for the pointer-based spatial hashing inside Open3D's
 ``ScalableTSDFVolume`` (reference CreateMesh.py:300-336 and
 CodeThatWorks/1camera-detectsSceneChanges.py:78-82 allocate it; the C++ side
 grows a std::unordered_map of 16^3 blocks). XLA has no pointers and no
@@ -17,7 +17,7 @@ Duplicate keys from different lanes win *together* (they read back the same
 key), so deduplication is free. Each resolved new slot gets a block index
 from a prefix-sum over the per-slot "newly claimed" mask — a deterministic,
 collision-free allocation without atomics. Everything is fixed-shape
-gather/scatter/cumsum, which is exactly what the TPU memory system wants.
+gather/scatter/cumsum, which is exactly what a wide memory system wants.
 
 Block coordinates live in [-512, 512)^3 (covers ±41 m at 8 cm blocks) and
 pack into one non-negative int32; EMPTY = -1.

@@ -1,6 +1,7 @@
-"""Block-hashed TSDF volume resident in HBM (functional, jit/shard-friendly).
+"""Block-hashed TSDF volume resident in device memory (functional,
+jit/shard-friendly).
 
-TPU-native replacement for Open3D's ``ScalableTSDFVolume``
+Device-resident replacement for Open3D's ``ScalableTSDFVolume``
 (``integrate`` / ``extract_triangle_mesh`` / ``extract_point_cloud`` /
 ``reset`` used at reference CreateMesh.py:286-336,
 CodeThatWorks/1camera-detectsSceneChanges.py:78-82,270-291,
@@ -14,11 +15,11 @@ phases of integration are data-parallel with static shapes:
    along each ray inside the truncation band, quantize to block coords,
    batch insert-or-get into the hash. Deduplication is a side effect of the
    scatter-claim insert.
-2. **update**: for every pool slot, project all R^3 voxel centers into the
-   depth image and fuse (running weighted average, truncation band, weight
-   clamp). Inactive slots are masked. This is one giant fused elementwise
-   pass over [capacity, R^3] with a single gather from the (VMEM-resident)
-   depth/color images — exactly the memory shape TPUs like.
+2. **update**: frustum-cull the live blocks into a worklist, gather those
+   pool rows, project their R^3 voxel centers into the depth image and fuse
+   (running weighted average, truncation band, weight clamp), then scatter
+   the rows back (:func:`integrate_worklist`). :func:`integrate` does the
+   same over every pool row and is the plain reference.
 
 Pose convention: ``integrate`` takes **camera-to-world** (see core.se3); the
 reference's inconsistent forward/inverse usage is documented there.
@@ -51,12 +52,9 @@ class TSDFVolume(NamedTuple):
     table_vals: jax.Array  # int32[hash_capacity]
     n_blocks: jax.Array  # int32[] allocated block count
     block_coords: jax.Array  # int32[capacity, 3] grid coords of each block
-    # voxel arrays are stored KERNEL-NATIVE as (capacity, R^3/128, 128)
-    # (color: (capacity, 3, R^3/128, 128)). The trailing (sublane, lane) dims
-    # match the Pallas integrate kernel's BlockSpecs exactly, so its in-place
-    # aliasing survives jit/scan — a reshape at the kernel boundary would
-    # break the alias chain and silently copy the whole pool every frame
-    # (~1.3 GB, measured 9+ ms). Consumers reshape read-only views freely.
+    # voxel arrays are stored as (capacity, R^3/128, 128) (color:
+    # (capacity, 3, R^3/128, 128)); voxel lin = x*R^2 + y*R + z sits at
+    # [lin // 128, lin % 128]. Consumers reshape to (capacity, R^3) freely.
     tsdf: jax.Array  # f32[capacity, R^3/128, 128], normalized sdf in [-1, 1]
     weight: jax.Array  # f32[capacity, R^3/128, 128]
     color: jax.Array  # f32[capacity, 3, R^3/128, 128] channel-major
@@ -106,10 +104,9 @@ def allocate(vol: TSDFVolume, depth, rays, T_world_cam, cfg: TSDFConfig,
     depth: (H, W) meters (0 = invalid); rays: (H, W, 2) from pixel_rays.
 
     Candidate keys are massively duplicated (adjacent pixels share blocks,
-    ~50-500x), and TPU scatter/gather costs ~12 ns/element, so the hash
-    insert would dominate if fed raw candidates. A sort + adjacent-diff
-    dedups them to <= dedup_budget unique keys first — sort is fast and
-    vectorized on TPU, the 16-round insert then touches only ~1-5k lanes.
+    ~50-500x), so the hash insert would dominate if fed raw candidates. A
+    sort + adjacent-diff dedups them to <= dedup_budget unique keys first;
+    the probing insert then touches only ~1-5k keys.
     """
     d = jnp.asarray(depth)[::stride, ::stride]
     r = jnp.asarray(rays)[::stride, ::stride]
@@ -143,8 +140,8 @@ def allocate(vol: TSDFVolume, depth, rays, T_world_cam, cfg: TSDFConfig,
     # overflow flag. Insert cost is gather-bound and linear in the budget —
     # keep it snug.
 
-    # the last pool row is reserved as the Pallas worklist's trash slot.
-    # 6 probe rounds suffice at the low load factors the config enforces
+    # the last pool row is never allocated (a full pool holds capacity - 1
+    # blocks; the streaming manager's sizing relies on it). 6 probe rounds suffice at the low load factors the config enforces
     # (hash_capacity >= 2x blocks); rare unresolved keys also retry on the
     # next frame's allocate.
     table, counter, vals, overflowed = vhash.insert(
@@ -177,22 +174,16 @@ def voxel_world_centers(block_coords, cfg: TSDFConfig):
     return (base + ijk[None] + 0.5).astype(jnp.float32) * cfg.voxel_size
 
 
-@partial(jax.jit, static_argnames=("cfg", "intr"), donate_argnames=("vol",))
-def integrate(vol: TSDFVolume, depth, color, T_world_cam, intr: Intrinsics,
-              cfg: TSDFConfig) -> TSDFVolume:
-    """Fuse one registered RGB-D frame into the volume (update phase only —
-    call :func:`allocate` first; :func:`integrate_frame` does both).
+def observe_rows(block_coords, active, depth, color, T_world_cam,
+                 intr: Intrinsics, cfg: TSDFConfig):
+    """One frame's observation of every voxel of the given blocks: project
+    the voxel centers, take the nearest depth/colour pixel, keep voxels in
+    front of (or within the truncation band behind) the surface.
 
-    depth: (H, W) f32 meters; color: (H, W, 3) f32 in [0,1];
-    T_world_cam: camera-to-world.
-    """
+    block_coords: (B, 3); active: (B, 1) bool rows allowed to change.
+    Returns (upd (B, R^3) bool, tsdf_obs (B, R^3), colour (B, 3, R^3))."""
     T_cw = se3.inverse(jnp.asarray(T_world_cam, jnp.float32))
-    N_ = vol.tsdf.shape[0]
-    V_ = cfg.block_resolution ** 3
-    t_v = vol.tsdf.reshape(N_, V_)
-    w_v = vol.weight.reshape(N_, V_)
-    c_v = vol.color.reshape(N_, 3, V_)
-    pts_w = voxel_world_centers(vol.block_coords, cfg)  # (N, V, 3)
+    pts_w = voxel_world_centers(block_coords, cfg)  # (B, V, 3)
     pts_c = se3.transform_points(T_cw, pts_w.reshape(-1, 3)).reshape(pts_w.shape)
 
     z = pts_c[..., 2]
@@ -205,46 +196,152 @@ def integrate(vol: TSDFVolume, depth, color, T_world_cam, intr: Intrinsics,
     uic = jnp.clip(ui, 0, intr.width - 1)
     vic = jnp.clip(vi, 0, intr.height - 1)
 
-    d = jnp.asarray(depth)[vic, uic]  # (N, V) gather
-    has_depth = inb & (d > 0.0)
+    d = jnp.asarray(depth)[vic, uic]  # (B, V) gather
     sdf = d - z
-    in_band = has_depth & (sdf > -cfg.sdf_trunc)
-
-    slot_alive = (jax.lax.broadcasted_iota(jnp.int32, (N_, 1), 0) < vol.n_blocks)
-    upd = in_band & slot_alive
-
+    upd = inb & (d > 0.0) & (sdf > -cfg.sdf_trunc) & active
     tsdf_obs = jnp.minimum(sdf / cfg.sdf_trunc, 1.0)
-    w_old = w_v
-    w_new = jnp.where(upd, jnp.minimum(w_old + 1.0, cfg.max_integration_weight), w_old)
-    inv = 1.0 / jnp.maximum(w_old + 1.0, 1.0)
-    tsdf_new = jnp.where(upd, (t_v * w_old + tsdf_obs) * inv, t_v)
+    c = jnp.asarray(color)[vic, uic]  # (B, V, 3)
+    return upd, tsdf_obs, jnp.swapaxes(c, 1, 2)  # channel-major like the pool
 
-    c = jnp.asarray(color)[vic, uic]  # (N, V, 3)
-    c = jnp.swapaxes(c, 1, 2)  # -> (N, 3, V) to match the channel-major pool
-    col_new = jnp.where(upd[:, None, :], (c_v * w_old[:, None, :] + c) * inv[:, None, :],
-                        c_v)
-    return vol._replace(tsdf=tsdf_new.reshape(vol.tsdf.shape),
-                        weight=w_new.reshape(vol.weight.shape),
-                        color=col_new.reshape(vol.color.shape))
+
+def _fuse_rows(t_v, w_v, c_v, block_coords, active, depth, color,
+               T_world_cam, intr: Intrinsics, cfg: TSDFConfig):
+    """The per-voxel fusion arithmetic shared by both integrate forms.
+
+    t_v, w_v: (B, R^3) rows; c_v: (B, 3, R^3). Returns the updated
+    (t_v, w_v, c_v): running weighted average and weight clamp of
+    :func:`observe_rows`' observation."""
+    upd, tsdf_obs, c = observe_rows(block_coords, active, depth, color,
+                                    T_world_cam, intr, cfg)
+    w_new = jnp.where(upd, jnp.minimum(w_v + 1.0, cfg.max_integration_weight), w_v)
+    inv = 1.0 / jnp.maximum(w_v + 1.0, 1.0)
+    t_new = jnp.where(upd, (t_v * w_v + tsdf_obs) * inv, t_v)
+    c_new = jnp.where(upd[:, None, :], (c_v * w_v[:, None, :] + c) * inv[:, None, :],
+                      c_v)
+    return t_new, w_new, c_new
+
+
+@partial(jax.jit, static_argnames=("cfg", "intr"), donate_argnames=("vol",))
+def integrate(vol: TSDFVolume, depth, color, T_world_cam, intr: Intrinsics,
+              cfg: TSDFConfig) -> TSDFVolume:
+    """Fuse one registered RGB-D frame into EVERY pool row (update phase
+    only — call :func:`allocate` first). The plain reference that
+    :func:`integrate_worklist` is tested against.
+
+    depth: (H, W) f32 meters; color: (H, W, 3) f32 in [0,1];
+    T_world_cam: camera-to-world.
+    """
+    N_ = vol.tsdf.shape[0]
+    V_ = cfg.block_resolution ** 3
+    alive = jax.lax.broadcasted_iota(jnp.int32, (N_, 1), 0) < vol.n_blocks
+    t, w, c = _fuse_rows(vol.tsdf.reshape(N_, V_), vol.weight.reshape(N_, V_),
+                         vol.color.reshape(N_, 3, V_), vol.block_coords, alive,
+                         depth, color, T_world_cam, intr, cfg)
+    return vol._replace(tsdf=t.reshape(vol.tsdf.shape),
+                        weight=w.reshape(vol.weight.shape),
+                        color=c.reshape(vol.color.shape))
+
+
+# worklist sizes ladder for the eager path (static shapes -> one compile
+# per rung); fused steps take one static size and flag overflow instead
+WORKLIST_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+@partial(jax.jit, static_argnames=("cfg", "intr"))
+def build_worklist(block_coords, n_blocks, T_world_cam, intr: Intrinsics,
+                   cfg: TSDFConfig):
+    """Frustum-cull the live blocks. Returns (slots int32[N], n_active):
+    a permutation of the pool rows with the visible blocks first, so any
+    prefix of it holds distinct slots.
+
+    Conservative by construction: a block is culled only when no voxel
+    center in it can pass :func:`_fuse_rows`' in-image test. Its corners'
+    projections bound every voxel's (perspective maps the block's convex
+    hull to the corners' hull when all corners are in front); a block with
+    a corner at or behind the camera plane is kept unless every corner is.
+    """
+    N = block_coords.shape[0]
+    R = cfg.block_resolution
+    T_cw = se3.inverse(jnp.asarray(T_world_cam, jnp.float32))
+    corners = jnp.asarray(
+        [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1],
+         [1, 1, 0], [1, 0, 1], [0, 1, 1], [1, 1, 1]], jnp.float32)
+    pw = (block_coords[:, None, :].astype(jnp.float32) + corners[None]) * (
+        R * cfg.voxel_size)  # (N, 8, 3)
+    pc = se3.transform_points(T_cw, pw.reshape(-1, 3)).reshape(N, 8, 3)
+    z = pc[..., 2]
+    behind = z <= 1e-4
+    zs = jnp.maximum(z, 1e-4)
+    u = pc[..., 0] / zs * intr.fx + intr.cx
+    v = pc[..., 1] / zs * intr.fy + intr.cy
+    any_behind = jnp.any(behind, 1)
+    # one pixel of slack: a voxel at u = -0.4 still rounds into column 0
+    in_view = ((jnp.max(u, 1) > -1.0) & (jnp.min(u, 1) < intr.width)
+               & (jnp.max(v, 1) > -1.0) & (jnp.min(v, 1) < intr.height))
+    alive = jax.lax.broadcasted_iota(jnp.int32, (N,), 0) < n_blocks
+    visible = alive & ~jnp.all(behind, 1) & (any_behind | in_view)
+
+    vis_i = visible.astype(jnp.int32)
+    n_active = jnp.sum(vis_i)
+    dst = jnp.where(visible, jnp.cumsum(vis_i) - 1,
+                    n_active + jnp.cumsum(1 - vis_i) - 1)
+    slots = jnp.zeros((N,), jnp.int32).at[dst].set(
+        jax.lax.broadcasted_iota(jnp.int32, (N,), 0), unique_indices=True)
+    return slots, n_active
+
+
+@partial(jax.jit, static_argnames=("cfg", "intr", "worklist_size"),
+         donate_argnames=("vol",))
+def integrate_worklist(vol: TSDFVolume, depth, color, T_world_cam,
+                       intr: Intrinsics, cfg: TSDFConfig,
+                       worklist_size: int = 2048) -> TSDFVolume:
+    """Fuse one frame into the frustum-visible blocks only (update phase —
+    call :func:`allocate` first). Same result as :func:`integrate` while at
+    most ``worklist_size`` blocks are visible: the visible rows are
+    gathered, fused by the same arithmetic and scattered back. Beyond that
+    the excess visible blocks are skipped for this frame and the sticky
+    ``overflow`` flag is set."""
+    N = vol.tsdf.shape[0]
+    V = cfg.block_resolution ** 3
+    M = min(worklist_size, N)
+    slots, n_active = build_worklist(vol.block_coords, vol.n_blocks,
+                                     T_world_cam, intr, cfg)
+    rows = slots[:M]
+    t_pool = vol.tsdf.reshape(N, V)
+    w_pool = vol.weight.reshape(N, V)
+    c_pool = vol.color.reshape(N, 3, V)
+    active = jax.lax.broadcasted_iota(jnp.int32, (M, 1), 0) < n_active
+    t, w, c = _fuse_rows(t_pool[rows], w_pool[rows], c_pool[rows],
+                         vol.block_coords[rows], active, depth, color,
+                         T_world_cam, intr, cfg)
+    put = lambda pool, x: pool.at[rows].set(x, unique_indices=True)
+    return vol._replace(
+        tsdf=put(t_pool, t).reshape(vol.tsdf.shape),
+        weight=put(w_pool, w).reshape(vol.weight.shape),
+        color=put(c_pool, c).reshape(vol.color.shape),
+        overflow=vol.overflow | (n_active > M))
 
 
 def integrate_frame(vol: TSDFVolume, depth, color, rays, T_world_cam,
-                    intr: Intrinsics, cfg: TSDFConfig,
-                    stride: int = 2, backend: str = "auto") -> TSDFVolume:
-    """allocate + integrate in one call (the per-frame hot path).
+                    intr: Intrinsics, cfg: TSDFConfig, stride: int = 2,
+                    worklist_size: Optional[int] = None) -> TSDFVolume:
+    """allocate + worklist integrate (the per-frame hot path).
 
-    backend: "pallas" (worklist kernel — the fast path on TPU), "xla"
-    (reference jnp implementation), or "auto" (pallas on TPU, xla elsewhere).
+    With a static ``worklist_size`` this is pure traced work, safe inside
+    jit / lax.scan (every fused pipeline step calls it so). With ``None``
+    (eager callers) it reads the visible-block count back and picks the
+    smallest :data:`WORKLIST_SIZES` rung that holds it, so nothing is
+    skipped.
     """
     vol = allocate(vol, depth, rays, T_world_cam, cfg, stride=stride)
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from azurekinect3dreconstruction_tpu.ops.pallas.tsdf_kernels import (
-            integrate_worklist,
-        )
-        return integrate_worklist(vol, depth, color, T_world_cam, intr, cfg)
-    return integrate(vol, depth, color, T_world_cam, intr, cfg)
+    if worklist_size is None:
+        _, n_active = build_worklist(vol.block_coords, vol.n_blocks,
+                                     T_world_cam, intr, cfg)
+        na = int(n_active)
+        worklist_size = next((m for m in WORKLIST_SIZES if m >= na),
+                             vol.tsdf.shape[0])
+    return integrate_worklist(vol, depth, color, T_world_cam, intr, cfg,
+                              worklist_size=worklist_size)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ class Telemetry:
         # compiling new shapes (bucket ladders, streaming growth) and march
         # toward the kernel's vm.max_map_count — fatal SIGSEGV at ~65k
         # mappings (see process_map_count). One /proc read per 512 frames;
-        # no-op on TPU where the host holds no JIT code pages.
+        # a no-op on the GPU, where compiled kernels live on the card.
         if self.frame_count % 512 == 0 and release_jit_maps_if_crowded():
             self.count("jit_maps_released")
 
@@ -112,8 +112,8 @@ def process_map_count() -> int:
     ``vm.max_map_count`` (65530 by default) and DIES WITH SIGSEGV inside
     the next mmap-backed compile or cache load — that is how the full test
     suite crashed at ~94% before `release_jit_maps_if_crowded` existed.
-    The TPU path is immune (kernels run device-side; the host holds no
-    JIT code pages), so live pipelines only need this guard on CPU."""
+    The GPU path is not affected the same way (kernels live on the card),
+    so live pipelines only need this guard on CPU."""
     try:
         with open("/proc/self/maps") as f:
             return sum(1 for _ in f)

@@ -3,7 +3,7 @@ reconstruction to any browser on the network — the headless-friendly,
 Open3D-free equivalent of the reference's live ``VisualizerWithKeyCallback``
 window (/root/reference/CreateMesh.py:394-502, key loop :463-502).
 
-Design (TPU-host-friendly: zero per-frame cost unless someone is watching):
+Design (device-host-friendly: zero per-frame cost unless someone is watching):
 
 - The reconstruction loop calls ``update_mesh``/``update_cloud`` exactly like
   it does on the Open3D bridge viewer; each update packs the geometry ONCE
@@ -290,7 +290,7 @@ class BrowserLiveViewer:
     headless = False  # live loops should feed it geometry
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
-                 window_name: str = "tpu-kinect-recon",
+                 window_name: str = "kinect-recon",
                  max_vertices: int = 2_000_000):
         self.server = LiveViewerServer(host=host, port=port,
                                        title=window_name,

@@ -2,7 +2,7 @@
 
 Keeps viz where SURVEY.md §2.2 puts it: behind the script-level API, with
 Open3D's GLFW viewer when installed and a headless no-op fallback otherwise
-(so every pipeline runs in CI / on display-less TPU pods).
+(so every pipeline runs in CI / on display-less GPU hosts).
 
 Covers the reference's viewer surface: ``VisualizerWithKeyCallback`` with the
 full key map — S save, R reset/recalibrate, C color-mode/clear, M mesh
@@ -48,7 +48,7 @@ class LiveViewer:
     programmatically, updates are no-ops, ``tick`` returns True.
     """
 
-    def __init__(self, window_name: str = "tpu-kinect-recon", width: int = 1280,
+    def __init__(self, window_name: str = "kinect-recon", width: int = 1280,
                  height: int = 720, flip_display: bool = True):
         self._o3d = _o3d()
         self._callbacks: Dict[str, Callable] = {}

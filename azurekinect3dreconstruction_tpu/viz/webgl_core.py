@@ -2,7 +2,7 @@
 
 One hand-written renderer serves both browser surfaces:
 
-- the self-contained offline export (``viz/html_export.py`` — the TPU-native
+- the self-contained offline export (``viz/html_export.py`` — the device-native
   answer to the reference's offline Open3D window viewers,
   /root/reference/LastReconstructionVisualizer.py:12-43), and
 - the LIVE polling viewer page (``viz/live_server.py`` — the headless-friendly

@@ -1,4 +1,4 @@
-// kinrt — native host runtime for the TPU reconstruction framework.
+// kinrt — native host runtime for the reconstruction framework.
 //
 // The reference delegates its host runtime to third-party native code
 // (SURVEY.md §2.2): the k4a SDK moves frames, Open3D's C++ writes PLYs, and

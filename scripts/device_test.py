@@ -4,7 +4,7 @@
 Entry-point parity: reference CodeThatKindaWorks/test_device.py (start device,
 print color/depth/transformed_depth shapes) + checktorch.py (accelerator
 probe). Without a camera it reports the synthetic backend shapes and the JAX
-device, so the smoke test is meaningful on TPU pods too.
+device, so the smoke test is meaningful on GPU hosts too.
 """
 
 import argparse

@@ -28,17 +28,35 @@ from azurekinect3dreconstruction_tpu.pipelines import DualCameraFusion
 from azurekinect3dreconstruction_tpu.utils.telemetry import log_info
 
 
-def synthetic_pair_frames(args, intr):
+def synthetic_rig():
+    """(T0, T1): a STATIC two-camera rig looking at the scene (the
+    pipeline's world frame is camera 0; rigs do not move in the reference's
+    2-cam scripts)."""
     import jax.numpy as jnp
 
-    # a STATIC two-camera rig looking at the scene (the pipeline's world
-    # frame is camera 0; rigs do not move in the reference's 2-cam scripts)
-    cam = SyntheticCamera(intrinsics=intr)
-    T0 = np.eye(4)
     T1 = np.asarray(se3.se3_exp(jnp.asarray([0.12, 0.02, -0.02, 0.03, -0.1, 0.02],
                                             jnp.float32)), np.float64)
+    return np.eye(4), T1
+
+
+def synthetic_pair_frames(args, intr):
+    cam = SyntheticCamera(intrinsics=intr)
+    T0, T1 = synthetic_rig()
     for _ in range(args.frames):
         yield (cam.capture(T0), cam.capture(T1))
+
+
+def build_pipeline(intr, voxel: float, output_dir: str, sharded: bool = False,
+                   colored_calib: bool = False) -> DualCameraFusion:
+    """The pipeline this script runs, from its command-line choices."""
+    cfg = PipelineConfig(
+        tsdf=TSDFConfig(voxel_size=voxel, sdf_trunc=4 * voxel),
+        # 2048 parallel hypotheses + ICP refinement match the reference's
+        # acceptance quality at a fraction of the compile/compute cost
+        registration=RegistrationConfig(ransac_hypotheses=2048),
+    )
+    return DualCameraFusion((intr, intr), cfg, output_dir=output_dir,
+                            sharded=sharded, colored_calibration=colored_calib)
 
 
 def k4a_pair_frames(args):
@@ -70,7 +88,7 @@ def main():
     ap.add_argument("--sharded", action="store_true",
                     help="camera-per-device + block-sharded volume over a "
                          "jax.sharding.Mesh (needs >= 2 devices; on one "
-                         "chip, pass --cpu with XLA_FLAGS=--xla_force_host_"
+                         "GPU, pass --cpu with XLA_FLAGS=--xla_force_host_"
                          "platform_device_count=N to exercise it)")
     ap.add_argument("--colored-calib", action="store_true",
                     help="refine the auto-calibration extrinsic with "
@@ -88,15 +106,9 @@ def main():
     apply_backend_overrides(args)
 
     intr = Intrinsics.azure_kinect_depth_nfov().scaled(args.scale)
-    cfg = PipelineConfig(
-        tsdf=TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel),
-        # 2048 parallel hypotheses + ICP refinement match the reference's
-        # acceptance quality at a fraction of the compile/compute cost
-        registration=RegistrationConfig(ransac_hypotheses=2048),
-    )
-    pipe = DualCameraFusion((intr, intr), cfg, backend=args.backend,
-                            output_dir=args.output, sharded=args.sharded,
-                            colored_calibration=args.colored_calib)
+    pipe = build_pipeline(intr, args.voxel, args.output, sharded=args.sharded,
+                          colored_calib=args.colored_calib)
+    cfg = pipe.cfg
     if args.rig_calib:
         from azurekinect3dreconstruction_tpu.calib.extrinsics import RigCalibration
 

@@ -27,7 +27,7 @@ def main():
     frames, intr = make_source(args)
     cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=args.voxel,
                                          sdf_trunc=3 * args.voxel))
-    pipe = FragmentPipeline(intr, cfg, backend=args.backend)
+    pipe = FragmentPipeline(intr, cfg)
     for i, (depth, color) in enumerate(frames):
         if i % args.capture_every == 0:
             pipe.capture(depth, color)

@@ -20,6 +20,26 @@ from azurekinect3dreconstruction_tpu.utils.telemetry import log_info
 from azurekinect3dreconstruction_tpu.viz.savers import ResultSaver
 
 
+def build_pipeline(intr, tsdf_cfg: TSDFConfig, tracking: str = "frame_to_frame",
+                   streaming: bool = False, relocalize: bool = False,
+                   reloc_warmup: bool = False) -> MonoOdometryTSDF:
+    """The pipeline this script runs, from its command-line choices."""
+    cfg = PipelineConfig(tsdf=tsdf_cfg)
+    manager = None
+    if streaming:
+        from azurekinect3dreconstruction_tpu.tsdf.streaming import (
+            StreamingTSDF,
+        )
+
+        manager = StreamingTSDF.for_pipeline(cfg)
+        log_info(f"streaming: reload<{manager.reload_dist:.2f} m, "
+                 f"evict>{manager.evict_dist:.2f} m, "
+                 f"high water {manager.high_water} blocks")
+    return MonoOdometryTSDF(intr, cfg, tracking=tracking, streaming=manager,
+                            relocalize=relocalize,
+                            reloc_warmup=relocalize and reloc_warmup)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     add_common_args(ap)
@@ -46,23 +66,12 @@ def main():
     args = ap.parse_args()
 
     frames, intr = make_source(args)
-    cfg = PipelineConfig(
-        tsdf=TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel),
-    )
-    streaming = None
-    if args.streaming:
-        from azurekinect3dreconstruction_tpu.tsdf.streaming import (
-            StreamingTSDF,
-        )
-
-        streaming = StreamingTSDF.for_pipeline(cfg)
-        log_info(f"streaming: reload<{streaming.reload_dist:.2f} m, "
-                 f"evict>{streaming.evict_dist:.2f} m, "
-                 f"high water {streaming.high_water} blocks")
-    pipe = MonoOdometryTSDF(intr, cfg, backend=args.backend,
-                            tracking=args.tracking, streaming=streaming,
-                            relocalize=args.relocalize,
-                            reloc_warmup=args.relocalize and args.reloc_warmup)
+    pipe = build_pipeline(
+        intr, TSDFConfig(voxel_size=args.voxel, sdf_trunc=4 * args.voxel),
+        tracking=args.tracking, streaming=args.streaming,
+        relocalize=args.relocalize, reloc_warmup=args.reloc_warmup)
+    cfg = pipe.cfg
+    streaming = pipe.streaming
     viewer = make_viewer(args, "mono odometry+TSDF")
     saver = ResultSaver(args.output)
     state = {"mesh_mode": False}
@@ -133,8 +142,7 @@ def main():
     )
 
     # preview wire: 3x fewer pull bytes at a stated (sub-voxel/500)
-    # tolerance — the live view rides tunnel weather, the SAVE path below
-    # extracts exactly
+    # tolerance for the live view; the SAVE path below extracts exactly
     inc = IncrementalExtractor(cfg.tsdf, wire="preview")
 
     # double-buffered host->device streaming: frame k+1 uploads while the

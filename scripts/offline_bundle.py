@@ -31,12 +31,11 @@ def main():
                                          sdf_trunc=4 * args.voxel))
     if args.resume:
         frames, intr = make_source(args)
-        pipe = OfflineBundle.resume(intr, args.output, cfg, backend=args.backend)
+        pipe = OfflineBundle.resume(intr, args.output, cfg)
         log_info(f"resumed with {pipe.n_frames} frames")
     else:
         frames, intr = make_source(args)
-        pipe = OfflineBundle(intr, cfg, output_dir=args.output,
-                             backend=args.backend)
+        pipe = OfflineBundle(intr, cfg, output_dir=args.output)
         try:
             for depth, color in frames:
                 pipe.process_frame(depth, color)

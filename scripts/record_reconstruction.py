@@ -28,7 +28,7 @@ def main():
     frames, intr = make_source(args)
     cfg = PipelineConfig(tsdf=TSDFConfig(voxel_size=args.voxel,
                                          sdf_trunc=4 * args.voxel))
-    pipe = Recorder(intr, cfg, backend=args.backend, output_dir=args.output)
+    pipe = Recorder(intr, cfg, output_dir=args.output)
     viewer = make_viewer(args, "recorder")
     viewer.register_key("R", pipe.toggle_recording, "toggle recording")
     viewer.register_key("S", pipe.save_model, "save model")

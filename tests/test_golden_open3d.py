@@ -77,8 +77,7 @@ def test_tsdf_mesh_matches_open3d():
     vol = tsdf.create(cfg)
     for z, c, T in zip(g["depths"], g["colors"], g["poses"]):
         vol = tsdf.integrate_frame(vol, jnp.asarray(z), jnp.asarray(c), rays,
-                                   jnp.asarray(T, jnp.float32), intr, cfg,
-                                   backend="xla")
+                                   jnp.asarray(T, jnp.float32), intr, cfg)
     mesh = mc.extract_mesh(vol, cfg, max_cells=262144, max_tris=262144)
     nv = 3 * int(mesh.num_triangles)
     ours = np.asarray(mesh.vertices)[:nv]

@@ -1,11 +1,9 @@
 """Image-op semantics: the shift-add forms (ops/image.py) must match the
 plain padded-sum definitions written out longhand here.
 
-The pyramid/gradient ops were tried both ways on the real chip: as native
-``conv_general_dilated`` calls and as shifted-slice/add chains. The convs
-LOST (13.4 ms -> 35 ms odometry frame; tiny-channel convs hit a slow MXU
-path — see docs/PERF.md "conv-vs-shift-add stencil rule"), so ops/image.py
-keeps the shift-add forms. These tests anchor those numerics to the
+The pyramid/gradient ops are shifted-slice/add chains rather than native
+``conv_general_dilated`` calls (ops/image.py says why). These tests anchor
+those numerics to the
 original longhand definitions (reference behavior: the pyramid/gradient
 stack inside Open3D's compute_rgbd_odometry, used at
 /root/reference/CodeThatWorks/1camera-detectsSceneChanges.py:243-248).

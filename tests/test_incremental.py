@@ -32,8 +32,7 @@ def test_incremental_matches_full_extraction(synthetic_camera):
     for i, T in enumerate(poses):
         z, c = synthetic_camera.render(np.asarray(T, np.float32))
         vol = tsdf.integrate_frame(vol, jnp.asarray(z), jnp.asarray(c), rays,
-                                   jnp.asarray(T, jnp.float32), intr, CFG,
-                                   backend="xla")
+                                   jnp.asarray(T, jnp.float32), intr, CFG)
         mesh_inc = inc.update(vol)
         full = mc.extract_mesh(vol, CFG, max_cells=262144, max_tris=131072)
         nt_full = int(full.num_triangles)
@@ -54,8 +53,7 @@ def test_incremental_matches_full_extraction(synthetic_camera):
     zc[h // 2 - 20: h // 2 + 20, w // 2 - 20: w // 2 + 20] = \
         np.asarray(z)[h // 2 - 20: h // 2 + 20, w // 2 - 20: w // 2 + 20]
     vol = tsdf.integrate_frame(vol, jnp.asarray(zc), jnp.asarray(c), rays,
-                               jnp.asarray(poses[-1], jnp.float32), intr, CFG,
-                               backend="xla")
+                               jnp.asarray(poses[-1], jnp.float32), intr, CFG)
     mesh_inc = inc.update(vol)
     assert 0 < inc.last_touched < total, (inc.last_touched, total)
     assert inc.last_mode == "compact", inc.last_mode
@@ -88,8 +86,7 @@ def test_incremental_preview_wire_tolerance(synthetic_camera):
     for T in poses:
         z, c = synthetic_camera.render(np.asarray(T, np.float32))
         vol = tsdf.integrate_frame(vol, jnp.asarray(z), jnp.asarray(c), rays,
-                                   jnp.asarray(T, jnp.float32), intr, CFG,
-                                   backend="xla")
+                                   jnp.asarray(T, jnp.float32), intr, CFG)
         me = exact.update(vol)
         mp = prev.update(vol)
         nt = me.triangles.shape[0]
@@ -116,7 +113,7 @@ def test_incremental_handles_reset(synthetic_camera):
     inc = IncrementalExtractor(CFG, max_cells=262144, max_tris=131072)
     vol = tsdf.create(CFG)
     vol = tsdf.integrate_frame(vol, jnp.asarray(z), jnp.asarray(c), rays,
-                               jnp.asarray(T), intr, CFG, backend="xla")
+                               jnp.asarray(T), intr, CFG)
     m1 = inc.update(vol)
     assert m1.triangles.shape[0] > 100
     # scene-change reset ('C' key): fresh volume must not resurrect the cache
@@ -138,7 +135,7 @@ def test_incremental_sees_changes_after_weight_saturation(synthetic_camera):
     reps = int(CFG.max_integration_weight) + 5
     for _ in range(reps):
         vol = tsdf.integrate_frame(vol, jnp.asarray(z), jnp.asarray(c), rays,
-                                   jnp.asarray(T), intr, CFG, backend="xla")
+                                   jnp.asarray(T), intr, CFG)
     inc.update(vol)
     inc.update(vol)
     assert inc.last_touched == 0  # fully saturated and unchanged
@@ -148,6 +145,6 @@ def test_incremental_sees_changes_after_weight_saturation(synthetic_camera):
                     np.float32)
     z2, c2 = synthetic_camera.render(T2)
     vol = tsdf.integrate_frame(vol, jnp.asarray(z2), jnp.asarray(c2), rays,
-                               jnp.asarray(T2), intr, CFG, backend="xla")
+                               jnp.asarray(T2), intr, CFG)
     inc.update(vol)
     assert inc.last_touched > 0, "saturated blocks went blind to change"

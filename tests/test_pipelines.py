@@ -37,7 +37,7 @@ def cam():
 def test_mono_odometry_tsdf_tracks_and_reconstructs(cam):
     from azurekinect3dreconstruction_tpu.pipelines import MonoOdometryTSDF
 
-    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG, backend="xla")
+    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG)
     poses = orbit_trajectory(6, radius=0.25, angle_span=0.5)
     for T in poses:
         d, c = cam.capture(T)
@@ -63,7 +63,7 @@ def test_mono_mesh_accuracy_on_sphere():
     scene = Scene(spheres=(Sphere((0.0, 0.0, 1.2), 0.3, (0.9, 0.3, 0.2)),))
     cam = SyntheticCamera(scene=scene,
                           intrinsics=Intrinsics.azure_kinect_depth_nfov().scaled(0.25))
-    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG, backend="xla")
+    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG)
     for T in orbit_trajectory(6, radius=0.3, center=(0, 0, 1.2), angle_span=0.8):
         d, c = cam.capture(T)
         pipe.process_frame(d, c)
@@ -81,7 +81,7 @@ def test_mono_mesh_accuracy_on_sphere():
 def test_recorder_pipeline(cam, tmp_path):
     from azurekinect3dreconstruction_tpu.pipelines import Recorder
 
-    pipe = Recorder(cam.intrinsics, SMALL_CFG, backend="xla",
+    pipe = Recorder(cam.intrinsics, SMALL_CFG,
                     output_dir=str(tmp_path))
     pipe.toggle_recording()
     poses = orbit_trajectory(4, radius=0.2, angle_span=0.3)
@@ -106,7 +106,7 @@ def test_dual_fusion_autocalibration(cam, tmp_path):
     xi = np.array([0.12, 0.03, -0.02, 0.05, -0.12, 0.04])
     T1 = np.asarray(se3.se3_exp(xi))
     pipe = DualCameraFusion((cam.intrinsics, cam.intrinsics), SMALL_CFG,
-                            backend="xla", output_dir=str(tmp_path))
+                            output_dir=str(tmp_path))
     d0, c0 = cam.capture(np.eye(4))
     d1, c1 = cam.capture(T1)
     pipe.process_frames(((d0, c0), (d1, c1)))
@@ -158,7 +158,7 @@ def test_dual_fusion_colored_calibration_locks_textured_plane(tmp_path):
 
     def refine_err(colored):
         pipe = DualCameraFusion((c.intrinsics, c.intrinsics), SMALL_CFG,
-                                backend="xla", output_dir=str(tmp_path))
+                                output_dir=str(tmp_path))
         pipe.extrinsics = [np.eye(4), seed.copy()]
         pipe.calibrated = True
         ok = pipe.calibrate(tuple(frames), refine_only=True, colored=colored)
@@ -181,7 +181,7 @@ def test_recorder_deferred_fallback_rebases_pose(cam, tmp_path):
     the FPFH+RANSAC+ICP ladder, rebasing the device pose chain."""
     from azurekinect3dreconstruction_tpu.pipelines import Recorder
 
-    pipe = Recorder(cam.intrinsics, SMALL_CFG, backend="xla",
+    pipe = Recorder(cam.intrinsics, SMALL_CFG,
                     output_dir=str(tmp_path))
     pipe.toggle_recording()
     # an orbit skip: frames 0-2 track smoothly, then the camera jumps
@@ -228,7 +228,7 @@ def test_raw_dual_step_matches_per_camera_integration(cam):
     d0, c0 = cam.capture(np.eye(4))
     d1, c1 = cam.capture(T1)
 
-    step = make_raw_dual_step(intr, intr, tcfg, backend="xla")
+    step = make_raw_dual_step(intr, intr, tcfg)
     args = (jnp.asarray(d0), jnp.asarray(c0), jnp.asarray(d1),
             jnp.asarray(c1), rays, rays,
             jnp.eye(4, dtype=jnp.float32), jnp.asarray(T1, jnp.float32),
@@ -240,8 +240,7 @@ def test_raw_dual_step_matches_per_camera_integration(cam):
         f = RGBDFrame.from_raw(d, c, ccfg.depth_scale, ccfg.depth_trunc,
                                ccfg.depth_min)
         ref = tsdf.integrate_frame(ref, f.depth, f.color, rays,
-                                   jnp.asarray(T, jnp.float32), intr, tcfg,
-                                   backend="xla")
+                                   jnp.asarray(T, jnp.float32), intr, tcfg)
     assert int(vol.n_blocks) == int(ref.n_blocks)
     assert np.isclose(float(vol.weight.sum()), float(ref.weight.sum()))
     assert np.isclose(float(vol.tsdf.sum()), float(ref.tsdf.sum()), atol=1e-3)
@@ -251,8 +250,7 @@ def test_raw_dual_step_matches_per_camera_integration(cam):
     f0 = RGBDFrame.from_raw(d0, c0, ccfg.depth_scale, ccfg.depth_trunc,
                             ccfg.depth_min)
     ref0 = tsdf.integrate_frame(tsdf.create(tcfg), f0.depth, f0.color, rays,
-                                jnp.eye(4, dtype=jnp.float32), intr, tcfg,
-                                backend="xla")
+                                jnp.eye(4, dtype=jnp.float32), intr, tcfg)
     assert int(vol0.n_blocks) == int(ref0.n_blocks)
     assert np.isclose(float(vol0.weight.sum()), float(ref0.weight.sum()))
 
@@ -265,7 +263,7 @@ def test_dual_fusion_hot_loop_skips_eager_decode(cam, tmp_path):
     T1 = np.asarray(se3.se3_exp(
         np.array([0.12, 0.03, -0.02, 0.05, -0.12, 0.04])))
     pipe = DualCameraFusion((cam.intrinsics, cam.intrinsics), SMALL_CFG,
-                            backend="xla", output_dir=str(tmp_path))
+                            output_dir=str(tmp_path))
     pair = ((cam.capture(np.eye(4))), (cam.capture(T1)))
     pipe.process_frames(pair)
     assert pipe.calibrated
@@ -280,7 +278,7 @@ def test_offline_bundle_loop_and_reintegrate(cam, tmp_path):
     from azurekinect3dreconstruction_tpu.pipelines import OfflineBundle
 
     pipe = OfflineBundle(cam.intrinsics, SMALL_CFG, output_dir=str(tmp_path),
-                         backend="xla", loop_min_gap=4, loop_radius=1.0,
+                         loop_min_gap=4, loop_radius=1.0,
                          loop_check_interval=4, checkpoint_interval=4)
     # out-and-back trajectory so a loop closure exists
     fwd = orbit_trajectory(4, radius=0.2, angle_span=0.4)
@@ -298,7 +296,7 @@ def test_offline_bundle_loop_and_reintegrate(cam, tmp_path):
     assert np.linalg.norm(p_end - p_start) < 0.05
     # resume from the frame log reproduces the node count
     resumed = OfflineBundle.resume(cam.intrinsics, str(tmp_path), SMALL_CFG,
-                                   backend="xla", loop_min_gap=4,
+                                   loop_min_gap=4,
                                    loop_radius=1.0, loop_check_interval=4)
     assert resumed.n_frames == len(poses)
 
@@ -329,9 +327,9 @@ def test_raw_batch_reintegration_matches_per_frame(cam):
                                camcfg.depth_min)
         ref = tsdf.integrate_frame(ref, f.depth, f.color, rays,
                                    jnp.asarray(T, jnp.float32),
-                                   cam.intrinsics, cfg, backend="xla")
+                                   cam.intrinsics, cfg)
 
-    batch = make_raw_batch_fn(cam.intrinsics, cfg, backend="xla")
+    batch = make_raw_batch_fn(cam.intrinsics, cfg)
     pad = 3
     ds = np.stack([f[0] for f in frames]
                   + [np.zeros_like(frames[0][0])] * pad)
@@ -353,7 +351,7 @@ def test_raw_batch_reintegration_matches_per_frame(cam):
 def test_fragment_pipeline(cam):
     from azurekinect3dreconstruction_tpu.pipelines import FragmentPipeline
 
-    pipe = FragmentPipeline(cam.intrinsics, SMALL_CFG, backend="xla")
+    pipe = FragmentPipeline(cam.intrinsics, SMALL_CFG)
     poses = orbit_trajectory(3, radius=0.15, angle_span=0.25)
     for T in poses:
         d, c = cam.capture(T)
@@ -424,7 +422,7 @@ def test_mono_streaming_mode_matches_plain(cam):
     raw = [cam.capture(T) for T in poses]
 
     def run(streaming):
-        pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG, backend="xla",
+        pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG,
                                 streaming=streaming)
         for d, c in raw:
             pipe.process_frame(d, c)
@@ -472,7 +470,7 @@ def test_mono_frame_to_model_tracking(cam):
     import jax.numpy as jnp
 
     def run(tracking):
-        pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG, backend="xla",
+        pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG,
                                 tracking=tracking, model_refine_interval=2,
                                 model_min_inliers=500)
         for T in poses:
@@ -527,13 +525,13 @@ def test_frame_to_model_integrates_refined_pose(cam):
     vol = tsdf.create(SMALL_CFG.tsdf)
     vol = tsdf.integrate_frame(vol, f0.depth, f0.color, rays,
                                jnp.eye(4, dtype=jnp.float32), cam.intrinsics,
-                               SMALL_CFG.tsdf, backend="xla")
+                               SMALL_CFG.tsdf)
     mp, mm, _ = mc.extract_surface_samples(vol, SMALL_CFG.tsdf, 32768)
     # the recognizable correction: a model shifted +5 mm in x pulls the
     # refined pose away from pure odometry by about that much (< max_jump)
     mp = mp + jnp.asarray([0.005, 0.0, 0.0], jnp.float32)
 
-    step = make_raw_f2m_step(cam.intrinsics, SMALL_CFG, backend="xla",
+    step = make_raw_f2m_step(cam.intrinsics, SMALL_CFG,
                              min_inliers=500)
     d1, c1 = cam.capture(poses[1])
     T_prev = jnp.eye(4, dtype=jnp.float32)
@@ -556,7 +554,7 @@ def test_frame_to_model_integrates_refined_pose(cam):
     # THE contract: the volume was fused at exactly the returned pose
     want = tsdf.integrate_frame(jax.tree_util.tree_map(jnp.array, vol),
                                 f1.depth, f1.color, rays, T, cam.intrinsics,
-                                SMALL_CFG.tsdf, backend="xla")
+                                SMALL_CFG.tsdf)
     for a, b in zip(jax.tree_util.tree_leaves(vol_out),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
@@ -592,10 +590,9 @@ def test_frame_to_model_refresh_is_view_local(cam):
                                ccfg.depth_min)
         vol = tsdf.integrate_frame(vol, f.depth, f.color, rays,
                                    jnp.asarray(T, jnp.float32),
-                                   cam.intrinsics, SMALL_CFG.tsdf,
-                                   backend="xla")
+                                   cam.intrinsics, SMALL_CFG.tsdf)
     nb = int(vol.n_blocks)
-    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, SMALL_CFG,
                             tracking="frame_to_model", model_points=4096)
     reach = pipe._model_reach()
     pts, mask, _ = mc.extract_sampled_surface_model(
@@ -653,7 +650,7 @@ def test_raw_slam_step_matches_eager_decode(cam):
     from azurekinect3dreconstruction_tpu.core.camera import pixel_rays
     from azurekinect3dreconstruction_tpu.pipelines.mono_odometry_tsdf import (
         make_raw_slam_step,
-        make_xla_slam_step,
+        make_slam_step,
     )
     from azurekinect3dreconstruction_tpu.tsdf import volume as tsdf
 
@@ -668,12 +665,12 @@ def test_raw_slam_step_matches_eager_decode(cam):
                             camc.depth_min)
 
     eye = jnp.eye(4, dtype=jnp.float32)
-    ref_step = make_xla_slam_step(intr, SMALL_CFG)
+    ref_step = make_slam_step(intr, SMALL_CFG)
     vol_ref, T_ref, fit_ref = ref_step(
         tsdf.create(SMALL_CFG.tsdf), eye, f0.intensity, f0.depth,
         f1.intensity, f1.depth, f1.color, rays)
 
-    raw_step = make_raw_slam_step(intr, SMALL_CFG, backend="xla")
+    raw_step = make_raw_slam_step(intr, SMALL_CFG)
     vol_raw, T_raw, fit_raw, inten, depth_m = raw_step(
         tsdf.create(SMALL_CFG.tsdf), eye, f0.intensity, f0.depth,
         d1, c1, rays, 1.0 / camc.depth_scale, camc.depth_min,
@@ -702,7 +699,7 @@ def test_offline_bundle_optimization_reduces_drift(cam, tmp_path):
     cfg = dataclasses.replace(
         SMALL_CFG, odometry=OdometryConfig(pyramid_iters=(2, 2, 2)))
     pipe = OfflineBundle(cam.intrinsics, cfg, output_dir=str(tmp_path),
-                         backend="xla", loop_min_gap=4, loop_radius=1.0,
+                         loop_min_gap=4, loop_radius=1.0,
                          loop_check_interval=4, checkpoint_interval=0)
     fwd = orbit_trajectory(6, radius=0.25, angle_span=0.9)
     poses = fwd + fwd[::-1]  # out-and-back: the end revisits the start

@@ -60,7 +60,7 @@ def test_relocalizer_recovers_heldout_pose(cam):
         dm = d.astype(np.float32) / 1000.0
         cf = c.astype(np.float32) / 255.0
         vol = tsdf.integrate_frame(vol, dm, cf, rays, world[i],
-                                   cam.intrinsics, CFG.tsdf, backend="xla")
+                                   cam.intrinsics, CFG.tsdf)
 
     reloc = Relocalizer(cam.intrinsics, CFG, rays=rays, min_inliers=500,
                         model_points=16384)
@@ -96,7 +96,7 @@ def _fused_orbit(cam, n=8, radius=0.3, span=0.9, hold_out=4):
         d, c = cam.capture(poses[i])
         vol = tsdf.integrate_frame(
             vol, d.astype(np.float32) / 1000.0, c.astype(np.float32) / 255.0,
-            rays, world[i], cam.intrinsics, CFG.tsdf, backend="xla")
+            rays, world[i], cam.intrinsics, CFG.tsdf)
     return poses, world, rays, vol
 
 
@@ -151,7 +151,7 @@ def test_pipeline_relocalizes_after_occlusion_and_jump(cam):
 
     poses = orbit_trajectory(16, radius=0.3, angle_span=1.1)
     world = [np.linalg.inv(poses[0]) @ T for T in poses]
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             relocalize=True, reloc_window=2,
                             reloc_interval=4, reloc_min_inliers=500)
     h, w = cam.intrinsics.height, cam.intrinsics.width
@@ -191,7 +191,7 @@ def test_lost_latch_blocks_gate_passing_frames(cam):
         make_raw_slam_step,
     )
 
-    step = make_raw_slam_step(cam.intrinsics, CFG, backend="xla",
+    step = make_raw_slam_step(cam.intrinsics, CFG,
                               integrate_rejected=False)
     rays = pixel_rays(cam.intrinsics)
     d, c = cam.capture()
@@ -220,7 +220,7 @@ def test_pipeline_transient_rejection_resumes_fusion(cam):
     from azurekinect3dreconstruction_tpu.pipelines import MonoOdometryTSDF
 
     poses = orbit_trajectory(12, radius=0.25, angle_span=0.7)
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             relocalize=True, reloc_window=3,
                             reloc_interval=4, reloc_min_inliers=500)
     h, w = cam.intrinsics.height, cam.intrinsics.width
@@ -271,7 +271,7 @@ def test_pipeline_reloc_warmup_flag(cam, monkeypatch):
     called = []
     monkeypatch.setattr(Relocalizer, "warmup",
                         lambda self, vol=None: called.append(1) or 0.0)
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             relocalize=True, reloc_warmup=True)
     assert called == [1]
     assert pipe._relocalizer is not None
@@ -286,7 +286,7 @@ def test_mid_window_rejection_streak_declares_loss(cam):
     from azurekinect3dreconstruction_tpu.pipelines import MonoOdometryTSDF
 
     poses = orbit_trajectory(16, radius=0.3, angle_span=1.1)
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             relocalize=True, reloc_window=3,
                             reloc_interval=8, reloc_min_inliers=500)
     h, w = cam.intrinsics.height, cam.intrinsics.width
@@ -319,7 +319,7 @@ def test_latch_survives_check_boundary_mid_streak(cam):
     from azurekinect3dreconstruction_tpu.pipelines import MonoOdometryTSDF
 
     poses = orbit_trajectory(16, radius=0.25, angle_span=0.8)
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             relocalize=True, reloc_window=4,
                             reloc_interval=4, reloc_min_inliers=500)
     h, w = cam.intrinsics.height, cam.intrinsics.width
@@ -365,7 +365,7 @@ def test_model_cache_keyed_on_volume_contents(cam):
     dm = d.astype(np.float32) / 1000.0
     cf = c.astype(np.float32) / 255.0
     vol = tsdf.integrate_frame(vol, dm, cf, rays, np.eye(4, dtype=np.float32),
-                               cam.intrinsics, CFG.tsdf, backend="xla")
+                               cam.intrinsics, CFG.tsdf)
     reloc = Relocalizer(cam.intrinsics, CFG, rays=rays, min_inliers=500,
                         model_points=16384, restarts=1)
     reloc.attempt(vol, dm, T_hint=np.eye(4))
@@ -374,7 +374,7 @@ def test_model_cache_keyed_on_volume_contents(cam):
     nb = int(vol.n_blocks)
     vol2 = tsdf.integrate_frame(vol, dm, cf, rays,
                                 np.eye(4, dtype=np.float32),
-                                cam.intrinsics, CFG.tsdf, backend="xla")
+                                cam.intrinsics, CFG.tsdf)
     assert int(vol2.n_blocks) == nb
     reloc.attempt(vol2, dm, T_hint=np.eye(4))
     assert reloc._model_cache[0] != key1, \
@@ -409,7 +409,7 @@ def test_streaming_ticks_and_recovery_while_lost(cam):
 
     streaming = StreamingTSDF(CFG.tsdf, evict_dist=3.0, reload_dist=2.5,
                               check_interval=2)
-    pipe = MonoOdometryTSDF(cam.intrinsics, CFG, backend="xla",
+    pipe = MonoOdometryTSDF(cam.intrinsics, CFG,
                             streaming=streaming, relocalize=True,
                             reloc_window=2, reloc_interval=4,
                             reloc_min_inliers=500)

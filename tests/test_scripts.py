@@ -26,7 +26,7 @@ def run_script(name, *args, timeout=900):
     env = dict(os.environ)
     # the scripts pass --cpu themselves (jax.config.update before compute);
     # the env var additionally keeps any import-time backend probe off the
-    # TPU so smoke tests never contend for the real chip
+    # accelerator so smoke tests never contend for it
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run([sys.executable, os.path.join(SCRIPTS, name), *args],
                        capture_output=True, text=True, timeout=timeout,

@@ -36,13 +36,12 @@ def test_sharded_two_camera_fusion_matches_reference(mesh, synthetic_camera):
     vol_s = sv.create_sharded(CFG, mesh)
     vol_s = step(vol_s, depths, colors, posearr, rays)
 
-    # reference: single volume, both cameras (psum fusion == joint average)
+    # reference: single volume, both cameras allocated, then integrated in
+    # camera order (what every shard does with the gathered frames)
     ref = tsdf.create(CFG)
     for i in range(2):
         ref = tsdf.allocate(ref, depths[i], rays, posearr[i], CFG, stride=2,
                             dedup_budget=2048)
-    # joint-average both frames: accumulate obs sums manually via two
-    # sequential integrations (equivalent for weight-1 observations)
     for i in range(2):
         ref = tsdf.integrate(ref, depths[i], colors[i], posearr[i], intr, CFG)
 
@@ -76,6 +75,63 @@ def test_sharded_two_camera_fusion_matches_reference(mesh, synthetic_camera):
     assert both.sum() > 0.8 * (w_ref > 0).sum()
     np.testing.assert_allclose(w_s[both], w_ref[both], atol=1e-5)
     np.testing.assert_allclose(t_s[both], t_ref[both], atol=1e-5)
+
+
+def _rig_pair(synthetic_camera):
+    poses = orbit_trajectory(2, radius=0.3, angle_span=0.6)
+    frames = [synthetic_camera.render(np.asarray(T, np.float32)) for T in poses]
+    return (jnp.stack([f[0] for f in frames]), jnp.stack([f[1] for f in frames]),
+            jnp.stack([jnp.asarray(T, jnp.float32) for T in poses]))
+
+
+@pytest.mark.parametrize("n_blk", [2, 4])
+def test_sharded_fusion_equals_sequential_worklist_integrate(
+        synthetic_camera, n_blk):
+    """Every shard integrates the all_gathered frames in camera order with
+    the worklist form, so the combined volume is voxel-for-voxel the
+    single-device result of allocating both cameras, then integrating each
+    in turn. Each shard culls to the blocks it owns, so its worklist can be
+    smaller than the scene's visible set (~560 blocks here)."""
+    from azurekinect3dreconstruction_tpu.tsdf import hash as vhash
+
+    if len(jax.devices()) < 2 * n_blk:
+        pytest.skip(f"needs {2 * n_blk} virtual devices")
+    intr = synthetic_camera.intrinsics
+    rays = pixel_rays(intr)
+    depths, colors, posearr = _rig_pair(synthetic_camera)
+    m = sv.make_mesh(2, n_blk)
+    step = sv.make_sharded_step(m, intr, CFG, stride=2, worklist_size=512)
+    vol_s = step(sv.create_sharded(CFG, m), depths, colors, posearr, rays)
+    combined = sv.combine_shards(vol_s, CFG, n_blk)
+
+    ref = tsdf.create(CFG)
+    for i in range(2):
+        ref = tsdf.allocate(ref, depths[i], rays, posearr[i], CFG, stride=2)
+    for i in range(2):
+        ref = tsdf.integrate_worklist(ref, depths[i], colors[i], posearr[i],
+                                      intr, CFG, worklist_size=1024)
+
+    n = int(ref.n_blocks)
+    assert int(combined.n_blocks) == n > 0
+    assert not bool(np.asarray(vol_s.overflow).any())
+    slot = np.asarray(vhash.lookup(combined.table,
+                                   vhash.pack_key(ref.block_coords[:n])))
+    assert (slot >= 0).all()
+    for name in ("tsdf", "weight", "color"):
+        np.testing.assert_array_equal(np.asarray(getattr(combined, name))[slot],
+                                      np.asarray(getattr(ref, name))[:n],
+                                      err_msg=name)
+
+
+def test_sharded_worklist_overflow_is_flagged(mesh, synthetic_camera):
+    """A per-shard worklist too small for the visible blocks sets the sticky
+    overflow flag, as the single-device step does."""
+    intr = synthetic_camera.intrinsics
+    depths, colors, posearr = _rig_pair(synthetic_camera)
+    step = sv.make_sharded_step(mesh, intr, CFG, stride=2, worklist_size=4)
+    vol_s = step(sv.create_sharded(CFG, mesh), depths, colors, posearr,
+                 pixel_rays(intr))
+    assert bool(np.asarray(vol_s.overflow).any())
 
 
 def test_sharded_blocks_are_disjoint(mesh, synthetic_camera):
@@ -129,7 +185,7 @@ def test_combine_shards_extraction_matches_single_volume(mesh, synthetic_camera)
     nt_c, nt_r = int(mesh_c.num_triangles), int(mesh_r.num_triangles)
     assert nt_r > 500
     # seams would drop whole strips of boundary triangles; identical data
-    # (up to psum-vs-sequential rounding) must give identical counts
+    # must give identical counts
     assert abs(nt_c - nt_r) <= max(2, nt_r // 1000), (nt_c, nt_r)
 
     # triangle multiset parity via rounded centroids (voxel = 2 cm, so 0.1 mm
@@ -267,7 +323,7 @@ def test_dual_fusion_sharded_mode_matches_single_device(synthetic_camera):
     T1 = np.asarray(se3.se3_exp(jnp.asarray(
         [0.12, 0.02, -0.02, 0.03, -0.1, 0.02], jnp.float32)), np.float64)
 
-    pipes = [DualCameraFusion((intr, intr), pcfg, backend="xla", sharded=s,
+    pipes = [DualCameraFusion((intr, intr), pcfg, sharded=s,
                               output_dir="/tmp/df_test")
              for s in (False, True)]
     assert pipes[1].sharded, "sharded mode must engage on the 8-device mesh"
@@ -297,26 +353,21 @@ def test_dual_fusion_sharded_mode_matches_single_device(synthetic_camera):
     assert overlap > 0.999, f"only {overlap:.4f} of triangles match"
 
 
-def test_sharded_step_forced_pallas_runs_interpreted(synthetic_camera):
-    """backend="pallas" on a non-TPU mesh (THE kernel-parity configuration,
-    core/backend.py) must route the Pallas kernels through the interpreter
-    instead of failing Mosaic lowering, and match the XLA fusion body."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    m = sv.make_mesh(1, 2)
-    intr = synthetic_camera.intrinsics
-    rays = pixel_rays(intr)
-    d, c = synthetic_camera.render(np.eye(4, dtype=np.float32))
-    depths = jnp.stack([d])
-    colors = jnp.stack([c])
-    posearr = jnp.stack([jnp.eye(4, dtype=jnp.float32)])
+@pytest.mark.parametrize("case", ["one_device", "mixed_intrinsics"])
+def test_sharded_dual_fusion_refuses_instead_of_falling_back(
+        synthetic_camera, monkeypatch, tmp_path, case):
+    """sharded=True that cannot shard must fail loudly, not quietly run the
+    single-device path the caller did not ask for."""
+    from azurekinect3dreconstruction_tpu.config import PipelineConfig
+    from azurekinect3dreconstruction_tpu.pipelines import DualCameraFusion
 
-    out = {}
-    for backend in ("pallas", "xla"):
-        step = sv.make_sharded_step(m, intr, CFG, stride=4,
-                                    backend=backend, worklist_size=1024)
-        v = step(sv.create_sharded(CFG, m), depths, colors, posearr, rays)
-        out[backend] = (float(jnp.sum(v.weight)),
-                        int(np.asarray(v.n_blocks).sum()))
-    assert out["pallas"][1] == out["xla"][1]
-    np.testing.assert_allclose(out["pallas"][0], out["xla"][0], rtol=1e-5)
+    intr = synthetic_camera.intrinsics
+    intrs = (intr, intr)
+    if case == "one_device":
+        one = jax.devices()[:1]
+        monkeypatch.setattr(jax, "devices", lambda *a, **k: one)
+    else:
+        intrs = (intr, intr.scaled(0.5))
+    with pytest.raises(ValueError, match="sharded dual fusion"):
+        DualCameraFusion(intrs, PipelineConfig(tsdf=CFG), sharded=True,
+                         output_dir=str(tmp_path))

@@ -56,7 +56,7 @@ def _integrate_all(cfg, frames, intr, rays):
     vol = tv.create(cfg)
     for d, c, T in frames:
         vol = tv.integrate_frame(vol, d, c, rays, T, intr, cfg,
-                                 stride=2, backend="xla")
+                                 stride=2)
     return vol
 
 
@@ -107,7 +107,7 @@ def test_streaming_scan_no_overflow_and_exact_mesh(corridor):
                        high_water=0.75, check_interval=4,
                        max_cells=1 << 14, max_tris=1 << 16)
     for d, c, T in frames:
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert not bool(sv.vol.overflow)
     assert sv.n_evictions > 0
     assert sv.n_stored > 0
@@ -149,7 +149,7 @@ def test_streaming_revisit_reloads_and_stays_exact(corridor):
                        high_water=0.75, check_interval=4,
                        max_cells=1 << 14, max_tris=1 << 16)
     for d, c, T in frames:
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert not bool(sv.vol.overflow)
     assert sv.n_evictions > 0
     assert sv.n_reloads > 0
@@ -171,14 +171,14 @@ def test_streaming_reset_then_rescan_stays_exact(corridor):
                        high_water=0.75, check_interval=4,
                        max_cells=1 << 14, max_tris=1 << 16)
     for d, c, T in frames:
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert sv.n_stored > 0
     sv.reset_state()
     assert sv.n_stored == 0 and sv.n_frozen == 0
     assert int(sv.vol.n_blocks) == 0
     rescan = [frame(0.04 * i) for i in range(20)]
     for d, c, T in rescan:
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     ref = _integrate_all(BIG, rescan, intr, rays)
     np.testing.assert_array_equal(_stream_mesh_sorted(sv),
                                   _full_mesh_sorted(ref, BIG))
@@ -201,7 +201,7 @@ def test_streaming_thrash_across_hysteresis_band(corridor):
                        high_water=0.75, check_interval=4,
                        max_cells=1 << 14, max_tris=1 << 16)
     for d, c, T in frames:
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert not bool(sv.vol.overflow)
     assert sv.n_reloads >= 3
     n = int(sv.vol.n_blocks)
@@ -232,7 +232,7 @@ def test_incremental_extractor_survives_streaming_compaction(corridor):
     inc = IncrementalExtractor(SMALL, max_cells=1 << 14, max_tris=1 << 16)
     for i in range(60):
         d, c, T = frame(0.04 * i)
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
         if i % 4 == 0:
             m = inc.update(sv.vol)
     assert sv.n_evictions > 0
@@ -278,7 +278,7 @@ def test_incremental_index_survives_shuffle_at_constant_nb(corridor):
     from azurekinect3dreconstruction_tpu.tsdf import volume as tvol
 
     vol2 = tvol.integrate_frame(vol2, d, c, rays, T, intr, SMALL,
-                                stride=2, backend="xla")
+                                stride=2)
     m = inc.update(vol2)
     fresh = IncrementalExtractor(SMALL, max_cells=1 << 14,
                                  max_tris=1 << 16).update(vol2)
@@ -301,7 +301,7 @@ def test_reload_defers_when_pool_full(corridor):
     from azurekinect3dreconstruction_tpu.tsdf import volume as tvol
 
     sv.vol = tvol.integrate_frame(sv.vol, d, c, rays, T, intr, cfg,
-                                  stride=2, backend="xla")
+                                  stride=2)
     assert int(sv.vol.n_blocks) == cfg.block_capacity - 1  # full (trash row)
     s = cfg.block_resolution ** 3 // 128
     key = int(pack_np(np.array([[50, 50, 50]], np.int32))[0])
@@ -359,8 +359,8 @@ def test_tick_defers_while_state_in_flight(corridor):
     """With max_defer > 0 the interval tick must NOT block on an unfinished
     state transfer: it keeps returning False (counting deferred_frames)
     until the worker's future resolves, then runs exactly one tick and
-    restarts the interval cycle. Models the remote tunnel, where a pull
-    occupies a full RTT no matter how early it was dispatched."""
+    restarts the interval cycle. Models a slow link, where a pull takes
+    longer than the interval no matter how early it was dispatched."""
     from concurrent.futures import Future
 
     intr, rays, frame = corridor
@@ -444,7 +444,7 @@ def test_direct_tick_orphans_pending_prefetch(corridor):
     sv.tick = counting_tick
     for i in range(3):  # frames 1..3: frame 3 is the prefetch frame
         d, c, T = frame(0.04 * i)
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert sv._prefetch is not None  # prefetch staged one frame early
     orig(np.zeros(3))  # direct tick: orphan it
     assert sv._prefetch is None
@@ -452,5 +452,5 @@ def test_direct_tick_orphans_pending_prefetch(corridor):
     # fourth consumes it
     for i in range(4):
         d, c, T = frame(0.04 * (3 + i))
-        sv.integrate_frame(d, c, rays, T, intr, backend="xla")
+        sv.integrate_frame(d, c, rays, T, intr)
     assert ticks["n"] == 1 and sv._prefetch is None

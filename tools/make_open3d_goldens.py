@@ -1,7 +1,7 @@
 """Generate Open3D golden fixtures for tests/golden/*.npz.
 
 Run this ONCE in any environment with open3d installed (it is not available
-in the TPU CI image):
+in the CI image):
 
     python tools/make_open3d_goldens.py
 
